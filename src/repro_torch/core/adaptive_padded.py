@@ -1,0 +1,427 @@
+"""The padded adaptive engine on one device: a batch of B problems, each
+with its own doubling ladder of sketch sizes, solved in one loop.
+
+Port of ``repro.core.adaptive_padded`` (single device, monolithic solve).
+The sketch is allocated at m_max once; a problem's active size m_t only
+visits the doubling ladder {1, 2, 4, …, m_max}, so the sketched Gram at
+every level is computed before the loop by the family's provider in one
+touch of A (``core.level_grams``), and every level's H_S⁻¹ is factorized up
+front (``precond.shifted_ladder_inverses``). Inside the loop a doubling is
+a gather of the precomputed inverse, and the preconditioner is one batched
+matvec. Per-problem level validity guards skip ladder levels whose Gram or
+factor is not finite, and every problem exits with a truthful status.
+
+The reference's ``lax.while_loop`` runs while ``~all(done) & trips <
+limit``. Here the loop is a Python loop of device operations that never
+syncs the host inside a trip: a trip after every problem is done is an
+exact no-op (every update is gated by the per-problem ``active`` mask, and
+the trip counter by a device-side ``running`` flag), so ``trips`` stays the
+reference's count, and the host reads ``done.all()`` only every
+``CHECK_TRIPS`` trips to leave early. The reference's
+``lax.cond(any(reject), do_refactor, …)`` becomes the doubling restart
+computed every trip and selected per problem by ``reject``; a problem that
+did not reject gathers the inverse it already holds, so the result is
+bitwise what the ``cond`` gives.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.device import check_fp32_matmul, require_on, resolve_device
+from repro_torch.kernels.precision import canonical_compute_dtype
+
+from .level_grams import fold_seeds, get_provider
+from .precond import shifted_ladder_inverses
+from .quadratic import Quadratic
+from .solvers import c_alpha_rho, rho_to_rate
+from .status import SolveStatus
+
+PADDED_METHODS = ("ihs", "pcg", "polyak")
+# host check of done.all() every this many trips (the reference's
+# DEFAULT_SEGMENT_TRIPS in core/robust.py)
+CHECK_TRIPS = 32
+
+
+class PaddedState(NamedTuple):
+    x: torch.Tensor            # (B, d) iterates
+    x_prev: torch.Tensor       # (B, d) previous iterate (Polyak momentum)
+    r: torch.Tensor            # (B, d) PCG residual
+    rt: torch.Tensor           # (B, d) preconditioned residual
+    p: torch.Tensor            # (B, d) PCG search direction
+    grad: torch.Tensor         # (B, d) gradient at x
+    level: torch.Tensor        # (B,)  index into the doubling ladder
+    t_rel: torch.Tensor        # (B,)  iterations since the last restart
+    dtilde_I: torch.Tensor     # (B,)  δ̃ at the last restart
+    dtilde: torch.Tensor       # (B,)  current δ̃
+    dtilde0: torch.Tensor      # (B,)  δ̃ at x₀ under the current sketch
+    x_best: torch.Tensor       # (B, d) best iterate under the current metric
+    dt_best: torch.Tensor      # (B,)  its δ̃ (the returned certificate)
+    pinv: torch.Tensor         # (B, d, d) H_S⁻¹ at the current level
+    iters: torch.Tensor        # (B,)  accepted iterations
+    doublings: torch.Tensor    # (B,)
+    done: torch.Tensor         # (B,)  bool
+    converged: torch.Tensor    # (B,)  bool: δ̃ cleared tol
+    nan_hit: torch.Tensor      # (B,)  bool: a non-finite proposal was seen
+    trips: torch.Tensor        # ()    loop-trip counter
+
+
+class PaddedPrecompute(NamedTuple):
+    pinvs: torch.Tensor           # (L, B, d, d) remapped per-level H_S⁻¹
+    remap: torch.Tensor           # (L, B) valid-level redirect; −1 ⇒ none
+    any_valid: torch.Tensor       # (B,) problem has ≥1 usable level
+    gram_poisoned: torch.Tensor   # (B,) some level Gram was non-finite
+    invalid_levels: torch.Tensor  # (B,) count of skipped levels
+    G_full: torch.Tensor | None   # AᵀA, (d, d) shared or (B, d, d); None ⇒
+                                  # matrix-free hvp
+
+
+def _apply_pinv(pinv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """H_S⁻¹ z as one batched matvec — the in-loop hot path."""
+    return torch.bmm(pinv, z[:, :, None])[:, :, 0]
+
+
+def _pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def doubling_ladder(m_max: int) -> tuple[int, ...]:
+    """The sizes m_t can visit: 1, 2, 4, …, capped at m_max."""
+    ms, m = [], 1
+    while m < m_max:
+        ms.append(m)
+        m *= 2
+    ms.append(m_max)
+    return tuple(ms)
+
+
+def padded_trip_cap(m_max: int, max_iters: int) -> int:
+    """Loop-trip safety cap: rejects per problem are bounded by the ladder
+    length, so this is a net on top of the per-problem iteration cap."""
+    return max_iters + len(doubling_ladder(m_max)) + 3
+
+
+def _precompute_pinvs(grams: torch.Tensor, q: Quadratic) -> torch.Tensor:
+    """(L, B, d, d) explicit H_S⁻¹ at every ladder level."""
+    return shifted_ladder_inverses(grams, q.nu, q.lam_diag)
+
+
+def _gather_pinv(pinvs: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """Each problem's preconditioner at its current ladder level."""
+    return pinvs[level, torch.arange(level.shape[0], device=level.device)]
+
+
+def _valid_level_remap(level_ok: torch.Tensor):
+    """Per-(level, problem) redirect around invalid ladder levels: the
+    nearest valid level ≥ l, else the largest valid level below, else −1
+    (no valid level: LEVEL_INVALID). The reference's two associative scans
+    are a reversed cummin and a cummax over the ladder axis."""
+    L = level_ok.shape[0]
+    idx = torch.arange(L, dtype=torch.int64, device=level_ok.device)[:, None]
+    up = torch.where(level_ok, idx, L)
+    up = torch.flip(torch.cummin(torch.flip(up, [0]), dim=0).values, [0])
+    down = torch.where(level_ok, idx, -1)
+    down = torch.cummax(down, dim=0).values
+    remap = torch.where(up < L, up, down)
+    return remap, level_ok.any(dim=0)
+
+
+def _compute_ladder_grams(q: Quadratic, seeds, *, m_max, sketch, compute_dtype):
+    """(L, B, d, d) ladder-level Grams — the ONE touch of A."""
+    provider = get_provider(sketch)
+    data = provider.sample(seeds, m_max, q.n)
+    return provider.level_grams(data, q, doubling_ladder(m_max),
+                                compute_dtype=compute_dtype)
+
+
+def _ladder_tables(q: Quadratic, grams: torch.Tensor, *, guards: bool):
+    """Factorize the ladder and build the guard tables from level Grams:
+    (pinvs, remap, any_valid, gram_poisoned, invalid_levels). With
+    ``guards=False`` the remap is the identity and validity is assumed."""
+    B, dev = q.batch, grams.device
+    pinvs = _precompute_pinvs(grams, q)
+    L = pinvs.shape[0]
+    if not guards:
+        remap = torch.arange(L, device=dev)[:, None].expand(L, B)
+        return (pinvs, remap, torch.ones(B, dtype=torch.bool, device=dev),
+                torch.zeros(B, dtype=torch.bool, device=dev),
+                torch.zeros(B, dtype=torch.int64, device=dev))
+    gram_ok = torch.isfinite(grams).all(-1).all(-1)                  # (L, B)
+    level_ok = gram_ok & torch.isfinite(pinvs).all(-1).all(-1)
+    gram_poisoned = (~gram_ok).any(0)
+    remap, any_valid = _valid_level_remap(level_ok)
+    pinvs = pinvs[remap.clamp(min=0), torch.arange(B, device=dev)[None, :]]
+    eye = torch.eye(q.d, dtype=pinvs.dtype, device=dev)
+    pinvs = torch.where(any_valid[None, :, None, None], pinvs, eye)
+    invalid_levels = (~level_ok).sum(0)
+    return pinvs, remap, any_valid, gram_poisoned, invalid_levels
+
+
+def _gram_precompute(q: Quadratic, gram_hvp: bool | None):
+    """The optional true Gram behind ``gram_hvp`` (None = auto: on when
+    d ≤ min(n, 1024)): (d, d) shared or (B, d, d), or None for the
+    matrix-free hvp."""
+    if gram_hvp is None:
+        gram_hvp = q.d <= min(q.n, 1024)
+    if not gram_hvp:
+        return None
+    if q.shared_A:
+        return q.A.T @ q.A
+    return torch.bmm(q.A.transpose(1, 2), q.A)
+
+
+def _hvp_fn(q: Quadratic, G_full):
+    """H·v under the precomputed Gram (or q's matrix-free hvp)."""
+    if G_full is None:
+        return q.hvp
+    reg = (q.nu ** 2)[:, None] * q.lam_diag
+    if G_full.dim() == 2:
+        return lambda v: v @ G_full + reg * v
+    return lambda v: torch.bmm(G_full, v[:, :, None])[:, :, 0] + reg * v
+
+
+def _init_padded_state(q: Quadratic, pre: PaddedPrecompute, init_level, tol,
+                       x0=None) -> PaddedState:
+    B, d, dev = q.batch, q.d, q.device
+    top = pre.remap.shape[0] - 1
+    hvp = _hvp_fn(q, pre.G_full)
+    if init_level is None:
+        lvl0 = torch.zeros(B, dtype=torch.int64, device=dev)
+    else:
+        lvl0 = init_level.to(torch.int64).clamp(0, top)
+    pinv0 = _gather_pinv(pre.pinvs, lvl0)
+    if x0 is None:
+        x0 = torch.zeros((B, d), dtype=q.b.dtype, device=dev)
+        g0 = hvp(x0) - q.b                           # = −b
+        rt0 = _apply_pinv(pinv0, -g0)
+        dtw = 0.5 * _pdot(-g0, rt0)
+        dt0 = dtw
+        conv0 = dt0 <= tol * dt0                     # trivially solved (b=0)
+    else:
+        # warm start: anchor at x0, but keep the convergence scale at the
+        # cold b-based δ̃(0), so tol stays relative to the problem
+        x0 = x0.to(q.b.dtype)
+        g0 = hvp(x0) - q.b
+        rt0 = _apply_pinv(pinv0, -g0)
+        dtw = 0.5 * _pdot(-g0, rt0)
+        dt0 = 0.5 * _pdot(q.b, _apply_pinv(pinv0, q.b))
+        conv0 = dtw <= tol * dt0
+    zi = torch.zeros(B, dtype=torch.int64, device=dev)
+    return PaddedState(
+        x=x0, x_prev=x0, r=-g0, rt=rt0, p=rt0, grad=g0,
+        level=lvl0, t_rel=zi, dtilde_I=dtw, dtilde=dtw, dtilde0=dt0,
+        x_best=x0, dt_best=dtw, pinv=pinv0, iters=zi, doublings=zi,
+        done=conv0 | ~pre.any_valid,     # no valid level ⇒ frozen at x₀
+        converged=conv0,
+        nan_hit=torch.zeros(B, dtype=torch.bool, device=dev),
+        trips=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def _trip(q, pre, st: PaddedState, hvp, *, method, max_iters, rho, tol,
+          guards, top) -> PaddedState:
+    """One trip of the adaptive loop (the reference's while_loop body)."""
+    fdtype = st.x.dtype
+    phi, alpha = rho_to_rate(method, rho)
+    c = c_alpha_rho(alpha, rho)
+    mu = 1.0 - rho
+    _sq = math.sqrt(1.0 - rho)
+    mu_p = 2.0 * (1.0 - rho) / (1.0 + _sq)
+    beta_p = (1.0 - _sq) / (1.0 + _sq)
+
+    active = ~st.done
+    pinv = st.pinv
+    # ---- one step of the method under the current preconditioner ----
+    if method in ("ihs", "polyak"):
+        if method == "ihs":
+            x_new = st.x + mu * st.rt
+        else:
+            x_new = st.x + mu_p * st.rt + beta_p * (st.x - st.x_prev)
+        g_new = hvp(x_new) - q.b
+        rt_new = _apply_pinv(pinv, -g_new)
+        dt_new = 0.5 * _pdot(-g_new, rt_new)
+        r_new, p_new = -g_new, st.p
+    else:  # pcg
+        Hp = hvp(st.p)
+        denom = _pdot(st.p, Hp)
+        ok = denom > 0
+        alpha_s = torch.where(ok, 2.0 * st.dtilde / torch.where(ok, denom, 1.0), 0.0)
+        x_new = st.x + alpha_s[:, None] * st.p
+        r_new = st.r - alpha_s[:, None] * Hp
+        rt_new = _apply_pinv(pinv, r_new)
+        dt_new = 0.5 * _pdot(r_new, rt_new)
+        okb = st.dtilde > 0
+        beta = torch.where(okb, dt_new / torch.where(okb, st.dtilde, 1.0), 0.0)
+        p_new = rt_new + beta[:, None] * st.p
+        g_new = -r_new
+
+    # ---- per-problem improvement test (Alg 4.1 line 6) ----
+    threshold = c * torch.pow(phi, (st.t_rel + 1).to(fdtype)) * st.dtilde_I
+    if guards:
+        finite_prop = torch.isfinite(dt_new) & torch.isfinite(x_new).all(-1)
+    else:
+        finite_prop = torch.isfinite(dt_new)
+    bad = ~finite_prop | (dt_new > threshold)
+    at_cap = st.level >= top
+    reject = bad & active & ~at_cap
+    # at the ladder cap: accept freely and track the best iterate; clear
+    # divergence or a non-finite proposal stalls the problem
+    stalled = active & at_cap & (~finite_prop | (dt_new > 1e6 * st.dt_best))
+    accept = active & ~reject & ~stalled
+    conv_now = accept & (dt_new <= tol * st.dtilde0)
+
+    aB = accept[:, None]
+    improved = accept & (dt_new < st.dt_best)
+    iters = st.iters + accept.to(torch.int64)
+    level = torch.where(reject, torch.clamp(st.level + 1, max=top), st.level)
+
+    # ---- doubling: gather the next level's inverse and restart at x ----
+    # (x did not move on a reject, so the restart residual is −grad)
+    pinv_new = _gather_pinv(pre.pinvs, level)
+    res = -st.grad
+    rt_re = _apply_pinv(pinv_new, res)
+    dt_re = 0.5 * _pdot(res, rt_re)
+    dt0_re = 0.5 * _pdot(q.b, _apply_pinv(pinv_new, q.b))
+    rB = reject[:, None]
+    x = torch.where(aB, x_new, st.x)
+    dtilde = torch.where(accept, dt_new, st.dtilde)
+    return PaddedState(
+        x=x,
+        x_prev=torch.where(rB, x, torch.where(aB, st.x, st.x_prev)),
+        r=torch.where(rB, res, torch.where(aB, r_new, st.r)),
+        rt=torch.where(rB, rt_re, torch.where(aB, rt_new, st.rt)),
+        p=torch.where(rB, rt_re, torch.where(aB, p_new, st.p)),
+        grad=torch.where(aB, g_new, st.grad),
+        level=level,
+        t_rel=torch.where(reject, 0, torch.where(accept, st.t_rel + 1, st.t_rel)),
+        dtilde_I=torch.where(reject, dt_re, st.dtilde_I),
+        dtilde=torch.where(reject, dt_re, dtilde),
+        dtilde0=torch.where(reject, dt0_re, st.dtilde0),
+        x_best=torch.where(rB, x, torch.where(improved[:, None], x_new, st.x_best)),
+        dt_best=torch.where(reject, dt_re, torch.where(improved, dt_new, st.dt_best)),
+        pinv=pinv_new,
+        iters=iters,
+        doublings=st.doublings + reject.to(torch.int64),
+        done=st.done | stalled | conv_now | (iters >= max_iters),
+        converged=st.converged | conv_now,
+        nan_hit=st.nan_hit | (active & ~finite_prop),
+        trips=st.trips + (~st.done.all()).to(torch.int64),
+    )
+
+
+def _run_segment(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
+                 trip_limit: int, *, method: str, max_iters: int, rho: float,
+                 tol, guards: bool) -> PaddedState:
+    """The adaptive loop, up to ``trip_limit`` trips in total."""
+    hvp = _hvp_fn(q, pre.G_full)
+    top = pre.remap.shape[0] - 1
+    t0 = int(st.trips)
+    for k in range(t0, trip_limit):
+        if (k - t0) % CHECK_TRIPS == 0 and bool(st.done.all()):
+            break
+        st = _trip(q, pre, st, hvp, method=method, max_iters=max_iters,
+                   rho=rho, tol=tol, guards=guards, top=top)
+    return st
+
+
+def _finalize(pre: PaddedPrecompute, st: PaddedState, *, m_max: int):
+    """Status lattice + certificates from the terminal state."""
+    dev = st.x.device
+    ladder_m = torch.tensor(doubling_ladder(m_max), dtype=torch.int64, device=dev)
+    B = pre.remap.shape[1]
+    # report the level actually used (the remapped gather target)
+    eff_level = pre.remap[st.level, torch.arange(B, device=dev)].clamp(min=0)
+
+    def code(s):
+        return torch.tensor(int(s), dtype=torch.int64, device=dev)
+
+    status = torch.where(
+        st.converged, code(SolveStatus.OK),
+        torch.where(st.nan_hit | pre.gram_poisoned, code(SolveStatus.NAN_POISONED),
+                    torch.where(~pre.any_valid, code(SolveStatus.LEVEL_INVALID),
+                                code(SolveStatus.STALLED))))
+    stats = {"m_final": ladder_m[eff_level], "iters": st.iters,
+             "doublings": st.doublings, "dtilde": st.dt_best,
+             "level": eff_level, "trips": st.trips,
+             "status": status, "converged": st.converged,
+             "stalled": status == int(SolveStatus.STALLED),
+             "invalid_levels": pre.invalid_levels}
+    return st.x_best, stats
+
+
+def batch_seeds(seeds, B: int, device) -> torch.Tensor:
+    """(B,) int64 per-problem seeds from a (B,) tensor, or from one seed
+    (an int or 0-d tensor) folded with the problem index."""
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
+    if seeds.dim() == 0:
+        return fold_seeds(seeds, torch.arange(B, device=device))
+    if seeds.shape != (B,):
+        raise ValueError(f"seeds must be (B,) = ({B},), got {tuple(seeds.shape)}")
+    return seeds
+
+
+def padded_adaptive_solve_batched(
+    q: Quadratic,
+    seeds,
+    *,
+    m_max: int,
+    method: str = "ihs",
+    sketch: str = "gaussian",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    gram_hvp: bool | None = None,
+    init_level: torch.Tensor | None = None,
+    guards: bool = True,
+    compute_dtype: str = "fp32",
+    grams: torch.Tensor | None = None,
+    gram_full: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    device=None,
+):
+    """Adaptive solve of a batch of B problems on one device.
+
+    ``q`` holds per-problem A (B, n, d) or shared A (n, d); ``seeds`` is a
+    (B,) int64 tensor of uint32 seeds (problem b's sketch depends only on
+    seeds[b]) or one seed folded per problem. Returns (x, stats): x (B, d)
+    and per-problem stats tensors (m_final, iters, doublings, δ̃ ``dtilde``,
+    ladder ``level``, ``status``, ``converged``, ``stalled``,
+    ``invalid_levels``) plus the scalar loop ``trips``.
+
+    ``grams`` / ``gram_full`` supply the λ-free level Grams (L, B, d, d) and
+    the true Gram and skip the sketch pass; ``init_level`` (B,) starts each
+    problem's ladder at that level; ``x0`` (B, d) warm-starts the iterate.
+    ``guards`` (default on) skips ladder levels whose Gram or inverse is not
+    finite and reports truthful statuses. All tensors must lie on
+    ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    require_on(dev, A=q.A, b=q.b, seeds=seeds if torch.is_tensor(seeds) else None,
+               grams=grams, gram_full=gram_full, x0=x0, init_level=init_level)
+    check_fp32_matmul()
+    if method not in PADDED_METHODS:
+        raise ValueError(f"padded engine supports {PADDED_METHODS}, got {method!r}")
+    if q.row_weights is not None:
+        raise NotImplementedError(
+            "weighted problems are not ported yet (ROADMAP queue 1 item 10: "
+            "the weighted Gram and GLM paths)")
+    compute_dtype = canonical_compute_dtype(compute_dtype)
+    seeds = batch_seeds(seeds, q.batch, dev)
+    if grams is None:
+        grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
+                                      compute_dtype=compute_dtype)
+    pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
+        q, grams, guards=guards)
+    if gram_full is None:
+        gram_full = _gram_precompute(q, gram_hvp)
+    pre = PaddedPrecompute(
+        pinvs=pinvs, remap=remap, any_valid=any_valid,
+        gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
+        G_full=gram_full)
+    init = _init_padded_state(q, pre, init_level, tol, x0=x0)
+    st = _run_segment(q, pre, init, padded_trip_cap(m_max, max_iters),
+                      method=method, max_iters=max_iters, rho=rho, tol=tol,
+                      guards=guards)
+    return _finalize(pre, st, m_max=m_max)

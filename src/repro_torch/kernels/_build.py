@@ -1,0 +1,96 @@
+"""Builds the CUDA kernels of ``csrc/`` with ``nvcc`` and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` exports plain C launch functions, so it compiles in
+seconds without PyTorch's headers. A library is built at first use into
+``build/repro_torch_kernels/`` under the checkout's root (``.gitignore``
+lists ``build/``), named by a hash of its source and flags, so a changed
+source rebuilds and an unchanged one loads at once. A missing ``nvcc`` or a
+failed build raises: there is no fallback.
+
+``--use_fast_math`` is deliberately absent: it turns ``logf``/``cosf`` into
+intrinsics that lose accuracy in the Box–Muller tail of the Gaussian sketch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signature of every launch function: argument types, by library
+SIGNATURES = {
+    "gaussian_sa": {"gaussian_sa_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _P)},
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the repro_torch CUDA "
+            "kernels are built from source at first use and need the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns {name: compiler output} for the
+    sources compiled now (``-Xptxas=-v`` lists registers and shared memory)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs = {}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        os.replace(tmp, out)      # atomic: a concurrent build never sees half a file
+        logs[name] = log
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with its launch functions' argument types
+    set (every pointer and the stream as ``c_void_p``), building it first if
+    needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check_launch(code: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {code}")

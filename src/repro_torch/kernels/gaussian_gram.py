@@ -1,0 +1,158 @@
+"""Streamed Gaussian sketch→SA: the plain PyTorch version and the CUDA kernel.
+
+Port of ``repro.kernels.gaussian_gram``. Entry S[b, r, c] is a pure
+function of (seed_b, r, c): the murmur3 finalizer of the uint32 counter
+``r·2^20 + c`` keyed by the seed, then Box–Muller. The plain version
+(``gaussian_tile`` / ``gaussian_s_dense`` / ``gaussian_sa_ref``) and the
+kernel (``csrc/gaussian_sa.cu``) draw the same entries; the hash words are
+bitwise those of the JAX reference.
+
+This torch has no uint32 shifts or adds on the CPU, so the plain hash runs
+in int64 masked to 32 bits, with every 32×32-bit product split into 16-bit
+halves so that no intermediate overflows int64. Seeds are uint32 values
+held in int64 tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# Canonical micro-tile of the n axis: the plain version always reduces n in
+# _MICRO-column steps, so its chunk size never changes the numbers.
+_MICRO = 256
+_COL_BITS = 20                 # counters: row · 2^20 + col
+MAX_N = 1 << _COL_BITS         # column capacity of the counter packing
+MAX_M = 1 << (32 - _COL_BITS)  # row capacity
+
+_M32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B9
+_SEQ2 = 0x7F4A7C15
+_MUL1 = 0x85EBCA6B
+_MUL2 = 0xC2B2AE35
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2^32 for x in [0, 2^32) held in int64: the high half's
+    product is reduced mod 2^16 before it is shifted up."""
+    lo = x & 0xFFFF
+    hi = x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer: a bijective uint32 avalanche (int64 carrier)."""
+    x = _mul32(x ^ (x >> 16), _MUL1)
+    x = _mul32(x ^ (x >> 13), _MUL2)
+    return x ^ (x >> 16)
+
+
+def counter_hash(seeds: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
+    """h1 = mix(ctr ^ mix(seed ^ GOLD)), broadcasting seeds (B,) against
+    counters (...): the first hash word of every sketch entry."""
+    k = _mix((seeds & _M32) ^ _GOLD)
+    return _mix(ctr[None] ^ k.reshape((-1,) + (1,) * ctr.dim()))
+
+
+def hash_words(seeds: torch.Tensor, ctr: torch.Tensor):
+    """(h1, h2): the two uint32 hash words (int64 carrier) of each counter."""
+    h1 = counter_hash(seeds, ctr)
+    return h1, _mix((h1 + _SEQ2) & _M32)
+
+
+def uniforms(h1: torch.Tensor, h2: torch.Tensor):
+    """(u1, u2) fp32: 24-bit mantissas, u1 offset into (0, 1) so that
+    log(u1) is finite."""
+    u1 = (h1 >> 8).to(torch.float32) * (1.0 / 16777216.0) + (0.5 / 16777216.0)
+    u2 = (h2 >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    return u1, u2
+
+
+def gaussian_tile(seeds: torch.Tensor, row0: int, col0: int,
+                  shape: tuple[int, int]) -> torch.Tensor:
+    """(B, *shape) fp32 tile of each seed's N(0,1) sketch at (row0, col0)."""
+    dev = seeds.device
+    r = row0 + torch.arange(shape[0], dtype=torch.int64, device=dev)
+    c = col0 + torch.arange(shape[1], dtype=torch.int64, device=dev)
+    ctr = ((r[:, None] << _COL_BITS) + c[None, :]) & _M32
+    u1, u2 = uniforms(*hash_words(seeds, ctr))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(6.2831853071795864 * u2)
+
+
+def check_caps(n: int, m: int) -> None:
+    if n > MAX_N or m > MAX_M:
+        raise ValueError(
+            f"counter packing supports n ≤ {MAX_N}, m ≤ {MAX_M}; "
+            f"got n={n}, m={m}")
+
+
+def gaussian_s_dense(seeds: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The full (B, m, n) sketch, materialized: the dense baseline."""
+    check_caps(n, m)
+    return gaussian_tile(seeds, 0, 0, (m, n))
+
+
+def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
+                    chunk_cols: int = 2048,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain streamed S·diag(scale)·A, (B, m, d) fp32, from A (n, d) shared
+    or (B, n, d) per problem, seeds (B,) and an optional (B, n) column scale.
+
+    Each step generates a chunk of S and reduces it in fixed _MICRO-column
+    micro-tiles, so the sequence of partial products, and so the result bit
+    for bit, does not depend on ``chunk_cols``: zero padding adds exact
+    zeros. The live sketch state is one (B, m, chunk) tile."""
+    n, d = A.shape[-2], A.shape[-1]
+    B = seeds.shape[0]
+    check_caps(n, m)
+    k = max(1, -(-chunk_cols // _MICRO))
+    k = min(k, -(-n // _MICRO))
+    chunk = k * _MICRO
+    pad = (-n) % chunk
+    if pad:
+        A = torch.nn.functional.pad(A, (0, 0, 0, pad))
+        if scale is not None:
+            scale = torch.nn.functional.pad(scale, (0, pad))
+    acc = torch.zeros((B, m, d), dtype=torch.float32, device=A.device)
+    for c0 in range(0, n + pad, chunk):
+        S = gaussian_tile(seeds, 0, c0, (m, chunk))
+        if scale is not None:
+            S = S * scale[:, None, c0:c0 + chunk]
+        for i in range(k):
+            s_mu = S[:, :, i * _MICRO:(i + 1) * _MICRO]
+            a_mu = A[..., c0 + i * _MICRO:c0 + (i + 1) * _MICRO, :]
+            acc = acc + torch.matmul(s_mu, a_mu)
+    return acc
+
+
+def gaussian_sa_cuda(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/gaussian_sa.cu`` on the current stream: same contract
+    as ``gaussian_sa_ref``, for CUDA tensors."""
+    shared = A.dim() == 2
+    n, d = A.shape[-2], A.shape[-1]
+    B = seeds.shape[0]
+    check_caps(n, m)
+    if A.dtype != torch.float32 or not A.is_contiguous():
+        raise ValueError("gaussian_sa kernel takes a contiguous fp32 A")
+    if seeds.dtype != torch.int64 or seeds.shape != (B,):
+        raise ValueError("gaussian_sa kernel takes (B,) int64 seeds")
+    if not shared and A.shape[0] != B:
+        raise ValueError(f"A batch {A.shape[0]} != seeds batch {B}")
+    seeds = seeds.contiguous()
+    if scale is not None:
+        if scale.dtype != torch.float32 or scale.shape != (B, n):
+            raise ValueError(f"scale must be ({B}, {n}) fp32")
+        scale = scale.contiguous()
+    for name, t in (("A", A), ("seeds", seeds), ("scale", scale)):
+        if t is not None and t.device != A.device:
+            raise ValueError(f"{name} is on {t.device}, A on {A.device}")
+    out = torch.empty((B, m, d), dtype=torch.float32, device=A.device)
+    lib = _build.load("gaussian_sa")
+    code = lib.gaussian_sa_launch(
+        A.data_ptr(), 0 if shared else n * d, seeds.data_ptr(),
+        None if scale is None else scale.data_ptr(), out.data_ptr(),
+        B, n, d, m, torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check_launch(code, "gaussian_sa")
+    return out

@@ -1,0 +1,66 @@
+"""Ridge serving launcher: random-shape ridge requests through the port's
+shape-class bucketing and batched adaptive engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
+        [--device cuda|cpu]
+
+Mirrors ``repro.launch.serve --ridge`` for ridge traffic only; the data is
+drawn from a seeded ``torch.Generator`` on the chosen device. LM serving,
+GLM and path traffic, meshes and deadlines are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.serve.solver_service import SolverService
+
+
+def serve_ridge(args) -> dict:
+    svc = SolverService(method="pcg", device=args.device)
+    dev = svc.device
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    for _ in range(args.requests):
+        n = int(torch.randint(64, 1800, (), generator=g, device=dev))
+        d = int(torch.randint(8, 120, (), generator=g, device=dev))
+        A = torch.randn((n, d), generator=g, device=dev) / n ** 0.5
+        y = torch.randn((n,), generator=g, device=dev)
+        nu = 0.05 + 0.45 * float(torch.rand((), generator=g, device=dev))
+        svc.submit(A, y, nu=nu)
+    t0 = time.perf_counter()
+    sols = svc.flush()
+    dt = time.perf_counter() - t0
+    print(f"solver service on {dev}: {len(sols)} requests in {dt:.2f}s "
+          f"({len(sols) / dt:.1f} req/s) — {svc.stats['batches']} batches of "
+          f"{svc.batch_size}, {svc.stats['padded_slots']} padded slots "
+          f"({100 * svc.slot_utilization():.0f}% slot utilization)")
+    ok = [s for s in sols.values() if s.converged]
+    if ok:
+        m = sorted(s.m_final for s in ok)
+        print(f"ridge certificates: m_final min/median/max = "
+              f"{m[0]}/{m[len(m) // 2]}/{m[-1]}, "
+              f"max residual δ̃ = {max(s.delta_tilde for s in ok):.2e}")
+    counts: dict[str, int] = {}
+    for s in sols.values():
+        counts[s.status] = counts.get(s.status, 0) + 1
+    print("statuses: " + ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+          + f"; retries={svc.stats['retries']}, fallbacks={svc.stats['fallbacks']}")
+    return sols
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--ridge", action="store_true", required=True,
+                   help="serve ridge-solve traffic (the only ported workload)")
+    p.add_argument("--requests", type=int, default=24)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=0)
+    serve_ridge(p.parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

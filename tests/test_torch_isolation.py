@@ -1,0 +1,76 @@
+"""The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
+imports JAX or the JAX package, and the default device is CUDA, never a
+silent fall back to the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_modules_import_without_jax_loaded():
+    """Importing every port module pulls in no JAX (checked in a fresh
+    interpreter, since this test process has JAX loaded for the parity
+    tests)."""
+    import subprocess
+    import sys
+
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in PORT_FILES if p.name != "chip_smoke.py"]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+
+
+def test_default_device_refuses_without_cuda():
+    """With no CUDA device, the default-device entry points raise instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch import bridge, resolve_device
+    from repro_torch.core.adaptive_padded import padded_adaptive_solve_batched
+    from repro_torch.serve.solver_service import SolverService
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SolverService()
+    q = bridge.quadratic_from_numpy(
+        [[[1.0]]], [[1.0]], [1.0], [[1.0]], device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        padded_adaptive_solve_batched(q, 0, m_max=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.quadratic_from_numpy([[[1.0]]], [[1.0]], [1.0], [[1.0]])
+
+
+def test_tensors_off_the_entry_points_device_raise():
+    """Tensors on another device than the entry point's raise; nothing is
+    copied behind the caller's back."""
+    from repro_torch.device import require_on
+
+    with pytest.raises(ValueError, match="expected cuda"):
+        require_on(torch.device("cuda"), A=torch.zeros(2))
+    require_on(torch.device("cpu"), A=torch.zeros(2), b=None)
