@@ -8,14 +8,21 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every CUDA kernel of ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together;
-3. kernels against plain: at the main path's shapes, hold each kernel
-   against its plain PyTorch version and time both (CUDA events, warm,
-   median), beside the least time the card could take for the same work;
+3. kernels against plain: at the main path's shapes, hold each kernel and
+   each compute-dtype leg (fp32, bf16, int8) against its plain PyTorch
+   version and time both (CUDA events, warm, median), beside the least time
+   the card could take for the same work and a one-call PyTorch yardstick
+   where one exists; the SJLT kernel also runs twice and must repeat
+   bitwise;
 4. main path: a default ``SolverService`` on the card answers ridge
    requests of every default shape class (two full batches of the top
    Gaussian class, one of the SRHT class, and the three smaller classes);
-   every answer is held against an fp64 direct solve, and each kernel's
-   launch count over the run must be positive;
+   then five more services, one per (sketch, compute_dtype) in
+   {gaussian, sjlt} × {fp32, bf16, int8} other than (gaussian, fp32), each
+   answer two full batches of the top class and one of the SRHT class. Every
+   answer is held against an fp64 direct solve; the launch counts are set to
+   0 before each run and read after it, and every kernel leg must have been
+   launched;
 5. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
@@ -31,14 +38,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16 on
+# the tensor cores (the reduced legs multiply bf16 values into fp32 sums),
+# HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain: fp32 sums of n products taken in two orders differ by
 # about sqrt(n)·2^-24 of the result's scale; an indexing fault shows as O(1)
 GAUSSIAN_REL_TOL = 1e-4
-# FWHT: both run the same butterfly stages in the same order: exact
+# Gaussian bf16/int8 legs: besides the order of the sums, an S entry that the
+# kernel's logf/cosf and torch's log/cos put on two sides of a bf16 rounding
+# boundary differs by one bf16 ulp, 2^-8 of the entry, which moves its output
+# entry by about 2^-8·|S|·|A| ≈ 3e-4 of max|SA| at these shapes
+GAUSSIAN_REDUCED_REL_TOL = 1e-3
+# FWHT: both run the same butterfly stages in the same order: exact, in fp32
+# and in bf16
 FWHT_REL_TOL = 0.0
+# SJLT: exact products (±1 signs, or bf16 × bf16), fp32 sums of about n/M
+# terms; the plain version's index_add_ adds them in another order on the
+# card
+SJLT_REL_TOL = 1e-5
 # main path: each solution against an fp64 direct solve, in the energy norm
 # ‖e‖_H / ‖x‖_H that the δ̃ certificate measures, within 1e-3 or within
 # 2^-24·κ(H)·√k where that is larger, k the answer's PCG iterations. The
@@ -53,8 +73,8 @@ SOLVE_REL_TOL = 1e-3
 FP32_UNIT = 2.0 ** -24
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -110,6 +130,7 @@ def phase_build():
 def _compare(name, got, want, tol):
     import torch
 
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     rel = err / scale if scale else err
@@ -121,16 +142,47 @@ def _compare(name, got, want, tol):
     return err
 
 
+def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
+             library=None):
+    """Hold a kernel call against its plain version and time both, and the
+    one-call PyTorch yardstick ``library`` where there is one."""
+    err = _compare(label, kern(), plain(), tol)
+    ms, pms = time_ms(kern, reps=10), time_ms(plain, reps=3, warm=1)
+    lms = None if library is None else time_ms(library, reps=10)
+    bms, by = bound_ms(flops, nbytes, peak)
+    print(f"[kernel] {label}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
+          + ("" if lms is None else f", library yardstick {lms:.4f} ms"))
+    return {"variant": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+def _row(name, source, replaces, recs):
+    """One entry of the kernels line: the first measurement is the row's,
+    the others are its variants."""
+    head = {k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+    return dict(name=name, route="cuda", source=source, replaces=replaces, **head,
+                variants=recs[1:])
+
+
 def phase_kernels():
     import torch
 
+    from repro_torch.dist.compress import quantize_rows
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sjlt as ksj
     from repro_torch.kernels.fwht import fwht_ref
-    from repro_torch.kernels.gaussian_gram import gaussian_s_dense, gaussian_sa_ref
+    from repro_torch.kernels.gaussian_gram import (
+        gaussian_s_dense,
+        gaussian_sa_cuda,
+        gaussian_sa_ref,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
+    src = "src/repro_torch/kernels/csrc/"
+    ref_g = "src/repro/kernels/gaussian_gram.py"
 
     # Gaussian sketch→SA at the top Gaussian class: B=16, n=4096, d=256, m=512
     B, n, d, m = 16, 4096, 256, 512
@@ -138,65 +190,151 @@ def phase_kernels():
     A_sh = torch.randn((n, d), generator=g, device=dev) / n ** 0.5
     seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
     w = torch.rand((B, n), generator=g, device=dev) + 0.5
-    variants = [
-        ("per-problem A", lambda: ops.gaussian_sa(A, seeds, m),
-         lambda: gaussian_sa_ref(A, seeds, m), 4 * (B * n * d + B * m * d) + 8 * B,
-         2.0 * B * m * n * d),
-        ("shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
-         lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * (n * d + B * m * d) + 8 * B,
-         2.0 * B * m * n * d),
-        ("scaled (row weights)", lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
-         lambda: gaussian_sa_ref(A, seeds, m, scale=torch.sqrt(w)),
-         4 * (B * n * d + B * n + B * m * d) + 8 * B, 2.0 * B * m * n * d + B * m * n),
+    flops = 2.0 * B * m * n * d
+    out_b = 4 * B * m * d + 8 * B
+    recs = [
+        _measure("gaussian_sa per-problem A", lambda: ops.gaussian_sa(A, seeds, m),
+                 lambda: gaussian_sa_ref(A, seeds, m), 4 * B * n * d + out_b, flops,
+                 GAUSSIAN_REL_TOL,
+                 library=lambda: torch.bmm(gaussian_s_dense(seeds, m, n), A)),
+        _measure("gaussian_sa shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
+                 lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * n * d + out_b, flops,
+                 GAUSSIAN_REL_TOL),
+        _measure("gaussian_sa scaled (row weights)",
+                 lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
+                 lambda: gaussian_sa_ref(A, seeds, m, scale=torch.sqrt(w)),
+                 4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL),
     ]
-    gauss = []
-    for label, kern, plain, nbytes, flops in variants:
-        err = _compare(f"gaussian_sa {label}", kern(), plain(), GAUSSIAN_REL_TOL)
-        ms, pms = time_ms(kern, reps=10), time_ms(plain, reps=3, warm=1)
-        bms, by = bound_ms(flops, nbytes)
-        print(f"[kernel] gaussian_sa {label}: {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
-        gauss.append({"variant": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                      "bound_ms": bms, "bound_by": by})
-    lib_ms = time_ms(lambda: torch.bmm(gaussian_s_dense(seeds, m, n), A), reps=3, warm=1)
-    print(f"[kernel] gaussian_sa library yardstick gaussian_s_dense + torch.bmm: "
-          f"{lib_ms:.4f} ms")
-    rows.append(dict(name="gaussian_sa", route="cuda",
-                     source="src/repro_torch/kernels/csrc/gaussian_sa.cu",
-                     replaces="src/repro/kernels/gaussian_gram.py:210",
-                     **{k: gauss[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                 "bound_ms", "bound_by")},
-                     library_ms=lib_ms, variants=gauss[1:]))
-    del A, A_sh, w
+    rows.append(_row("gaussian_sa", src + "gaussian_sa.cu", ref_g + ":210", recs))
+    # bf16 leg as the service calls it: fp32 A rounded to bf16 on load; and
+    # with A stored in bf16
+    A_bf = A.to(torch.bfloat16)
+    S_bf = gaussian_s_dense(seeds, m, n).to(torch.bfloat16)   # yardstick: bf16 bmm
+    recs = [
+        _measure("gaussian_sa.bf16 (fp32 A)",
+                 lambda: gaussian_sa_cuda(A, seeds, m, compute_dtype="bf16"),
+                 lambda: gaussian_sa_ref(A, seeds, m, compute_dtype="bf16"),
+                 4 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                 library=lambda: torch.bmm(S_bf, A_bf)),
+        _measure("gaussian_sa.bf16 (bf16 A)",
+                 lambda: gaussian_sa_cuda(A_bf, seeds, m, compute_dtype="bf16"),
+                 lambda: gaussian_sa_ref(A_bf, seeds, m, compute_dtype="bf16"),
+                 2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS),
+        _measure("gaussian_sa.bf16 scaled (row weights, Pallas row 2)",
+                 lambda: gaussian_sa_cuda(A, seeds, m, scale=torch.sqrt(w),
+                                          compute_dtype="bf16"),
+                 lambda: gaussian_sa_ref(A, seeds, m, scale=torch.sqrt(w),
+                                         compute_dtype="bf16"),
+                 4 * (B * n * d + B * n) + out_b, flops + B * m * n,
+                 GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS),
+    ]
+    del S_bf
+    rows.append(_row("gaussian_sa.bf16", src + "gaussian_sa.cu", ref_g + ":210", recs))
+    # int8 leg: the codes stream, their row scales fold into the column scale
+    codes, a_scales = quantize_rows(A)
+    recs = [_measure("gaussian_sa.int8",
+                     lambda: gaussian_sa_cuda(codes, seeds, m, scale=a_scales,
+                                              compute_dtype="int8"),
+                     lambda: gaussian_sa_ref(codes, seeds, m, scale=a_scales,
+                                             compute_dtype="int8"),
+                     B * n * d + 4 * B * n + out_b, flops + B * m * n,
+                     GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS)]
+    rows.append(_row("gaussian_sa.int8", src + "gaussian_sa.cu", ref_g + ":234", recs))
+
+    # SJLT at the top class under sketch="sjlt": B=16, n=4096, d=256, M=512
+    M = 512
+    tgt = torch.randint(0, M, (B, n), generator=g, device=dev, dtype=torch.int32)
+    sg = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    idx = (tgt.long() + M * torch.arange(B, device=dev)[:, None]).reshape(-1)
+    out_b = 4 * B * M * d
+    meta = 8 * B * n                   # int32 targets and fp32 signs
+    sj_flops = 2.0 * B * n * d
+
+    def sjlt_row(name, A_in, cd, a_bytes, tol, peak, library=None, extra=()):
+        # the stream the kernel reads: int8 quantizes A and folds the scales
+        # into the signs, bf16 rounds the signs; A_in itself stays as it is
+        A_s, s_s = ksj.fold_stream(A_in, sg, cd)
+        kern = lambda: ksj.sjlt_launch(A_s, tgt, s_s, M, compute_dtype=cd)  # noqa: E731
+        first, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise SystemExit(f"chip_smoke: {name} does not repeat bitwise")
+        print(f"[kernel] {name}: two launches bitwise equal")
+        recs = [_measure(name, kern, lambda: ksj.sjlt_ref_batched(A_s, tgt, s_s, M, cd),
+                         a_bytes + meta + out_b, sj_flops, tol, peak, library), *extra]
+        return _row(name, src + "sjlt.cu", "src/repro/kernels/sjlt.py:140", recs)
+
+    A_flat = A.reshape(B * n, d)
+    A_rep = A_sh.expand(B, n, d).reshape(B * n, d)   # index_add_ takes no shared A
+    shared = _measure(
+        "sjlt shared A", lambda: ksj.sjlt_launch(A_sh, tgt, sg, M),
+        lambda: ksj.sjlt_ref_batched(A_sh, tgt, sg, M), 4 * n * d + meta + out_b,
+        sj_flops, SJLT_REL_TOL,
+        library=lambda: torch.zeros((B * M, d), device=dev).index_add_(0, idx, A_rep))
+    single = _measure(   # Pallas row 5: the B = 1 shared-A case
+        "sjlt single problem (sjlt.py:72)",
+        lambda: ksj.sjlt_launch(A_sh, tgt[:1], sg[:1], M),
+        lambda: ksj.sjlt_ref(A_sh, tgt[0], sg[0], M)[None], 4 * n * d + 8 * n + 4 * M * d,
+        2.0 * n * d, SJLT_REL_TOL,
+        library=lambda: torch.zeros((M, d), device=dev).index_add_(0, idx[:n], A_sh))
+    rows.append(sjlt_row(
+        "sjlt", A, "fp32", 4 * B * n * d, SJLT_REL_TOL, PEAK_FP32_FLOPS,
+        library=lambda: torch.zeros((B * M, d), device=dev).index_add_(0, idx, A_flat),
+        extra=(shared, single)))
+    bf_extra = _measure(
+        "sjlt.bf16 (bf16 A)",
+        lambda: ksj.sjlt_launch(A_bf, tgt, sg, M, compute_dtype="bf16"),
+        lambda: ksj.sjlt_ref_batched(A_bf, tgt, sg, M, "bf16"),
+        2 * B * n * d + meta + out_b, sj_flops, SJLT_REL_TOL, PEAK_BF16_FLOPS)
+    def single_leg(cd, a_item):        # Pallas row 5 in a reduced mode
+        A_s, s_s = ksj.fold_stream(A_sh, sg[:1], cd)
+        return _measure(
+            f"sjlt.{cd} single problem (sjlt.py:72)",
+            lambda: ksj.sjlt_launch(A_s, tgt[:1], s_s, M, compute_dtype=cd),
+            lambda: ksj.sjlt_ref_batched(A_s, tgt[:1], s_s, M, cd),
+            a_item * n * d + 8 * n + 4 * M * d, 2.0 * n * d, SJLT_REL_TOL, PEAK_BF16_FLOPS)
+
+    rows.append(sjlt_row("sjlt.bf16", A, "bf16", 4 * B * n * d, SJLT_REL_TOL,
+                         PEAK_BF16_FLOPS, extra=(bf_extra, single_leg("bf16", 4))))
+    rows.append(sjlt_row("sjlt.int8", A, "int8", B * n * d, SJLT_REL_TOL,
+                         PEAK_BF16_FLOPS, extra=(single_leg("int8", 1),)))
+    del A, A_sh, A_bf, A_flat, A_rep, w, codes, a_scales
 
     # FWHT at the SRHT class: B=16, n=16384, d=256, with the SRHT signs fused
     B, n, d = 16, 16384, 256
     X = torch.randn((B, n, d), generator=g, device=dev)
     s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
     lg = n.bit_length() - 1
-    variants = [
-        ("signs fused", lambda: ops.fwht_cols(X, row_scale=s),
-         lambda: fwht_ref(X * s[:, :, None]), 4 * (2 * B * n * d + B * n),
-         float(B * d * n * (lg + 1))),
-        ("unscaled", lambda: ops.fwht_cols(X), lambda: fwht_ref(X),
-         4 * 2 * B * n * d, float(B * d * n * lg)),
+    recs = [
+        _measure("fwht signs fused", lambda: ops.fwht_cols(X, row_scale=s),
+                 lambda: fwht_ref(X * s[:, :, None]), 4 * (2 * B * n * d + B * n),
+                 float(B * d * n * (lg + 1)), FWHT_REL_TOL),
+        _measure("fwht unscaled", lambda: ops.fwht_cols(X), lambda: fwht_ref(X),
+                 4 * 2 * B * n * d, float(B * d * n * lg), FWHT_REL_TOL),
     ]
-    fw = []
-    for label, kern, plain, nbytes, flops in variants:
-        err = _compare(f"fwht {label}", kern(), plain(), FWHT_REL_TOL)
-        ms, pms = time_ms(kern, reps=10), time_ms(plain, reps=3, warm=1)
-        bms, by = bound_ms(flops, nbytes)
-        print(f"[kernel] fwht {label}: {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
-        fw.append({"variant": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                   "bound_ms": bms, "bound_by": by})
-    rows.append(dict(name="fwht", route="cuda",
-                     source="src/repro_torch/kernels/csrc/fwht.cu",
-                     replaces="src/repro/kernels/fwht.py:43",
-                     **{k: fw[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                              "bound_ms", "bound_by")},
-                     library_ms=None, variants=fw[1:]))
-    del X, s
+    rows.append(_row("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
+    # bf16 leg: fp32 A in, every stage rounded to bf16, a bf16 stack out; the
+    # plain version is the one-pass bf16 butterfly
+    bf = torch.bfloat16
+    recs = [_measure("fwht.bf16 signs fused",
+                     lambda: ops.fwht_cols(X, row_scale=s, compute_dtype="bf16"),
+                     lambda: fwht_ref(X.to(bf) * s.to(bf)[:, :, None]),
+                     (4 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
+                     FWHT_REL_TOL),
+            _measure("fwht.bf16 unscaled", lambda: ops.fwht_cols(X, compute_dtype="bf16"),
+                     lambda: fwht_ref(X.to(bf)), (4 + 2) * B * n * d, float(B * d * n * lg),
+                     FWHT_REL_TOL)]
+    rows.append(_row("fwht.bf16", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
+    # int8 leg: the codes in, their row scales fused with the signs
+    codes, a_scales = quantize_rows(X)
+    s8 = s * a_scales
+    recs = [_measure("fwht.int8 signs·scales fused",
+                     lambda: ops.fwht_cols(codes, row_scale=s8, compute_dtype="int8"),
+                     lambda: fwht_ref(codes.to(bf) * s8.to(bf)[:, :, None]),
+                     (1 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
+                     FWHT_REL_TOL)]
+    rows.append(_row("fwht.int8", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
+    del X, s, codes, a_scales, s8
     torch.cuda.empty_cache()
     return rows
 
@@ -210,6 +348,12 @@ TRAFFIC = [
     (32, (2049, 4096), (129, 256)),      # class (4096, 256, 512): two batches
     (16, (8193, 16384), (129, 256)),     # class (16384, 256, 512, srht)
 ]
+# the (sketch, compute_dtype) runs after the default one: two full batches
+# of the top class (under the run's sketch) and one of the SRHT class (whose
+# FWHT runs in the run's dtype)
+MODES = [("gaussian", "bf16"), ("gaussian", "int8"), ("sjlt", "fp32"),
+         ("sjlt", "bf16"), ("sjlt", "int8")]
+MODE_TRAFFIC = TRAFFIC[-2:]
 DECAY = 0.95
 
 
@@ -229,19 +373,22 @@ def _request(g, dev, n_rng, d_rng):
     return A, y, nu
 
 
-def phase_main_path(dev="cuda"):
-    """A default SolverService answers the traffic; returns the kernels'
-    launch counts over the run."""
+def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
+                    traffic=TRAFFIC, seed=1):
+    """A SolverService with this default sketch family and sketch-pass
+    dtype answers the traffic; returns the kernel legs' launch counts over
+    the run, which are set to 0 just before it."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.serve.solver_service import SolverService
 
     dev = torch.device(dev)
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     requests = [_request(g, dev, n_rng, d_rng)
-                for count, n_rng, d_rng in TRAFFIC for _ in range(count)]
-    svc = SolverService(device=dev)
+                for count, n_rng, d_rng in traffic for _ in range(count)]
+    svc = SolverService(sketch=sketch, compute_dtype=compute_dtype, device=dev)
+    tag = f"[main {sketch}/{compute_dtype}]"
     per_class = {}
     solve_chunk = svc._solve_chunk
 
@@ -264,7 +411,7 @@ def phase_main_path(dev="cuda"):
     sols = svc.flush()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    print(f"[main] {len(ids)} requests answered in {wall:.3f} s "
+    print(f"{tag} {len(ids)} requests answered in {wall:.3f} s "
           f"({len(ids) / wall:.2f} req/s, first-call set-up included); "
           f"{svc.stats['batches']} batches of {svc.batch_size}, "
           f"{svc.stats['padded_slots']} padded slots; launches {launches}")
@@ -299,8 +446,9 @@ def phase_main_path(dev="cuda"):
             hist[s.status] = hist.get(s.status, 0) + 1
         m = sorted(s.m_final for s, *_ in rows)
         dts = [s.delta_tilde for s, *_ in rows if s.converged]
-        print(f"[main] class n={cls.n} d={cls.d} m_max={cls.m_max} "
-              f"sketch={cls.sketch or svc.sketch}: {rec['requests']} requests, "
+        print(f"{tag} class n={cls.n} d={cls.d} m_max={cls.m_max} "
+              f"sketch={cls.sketch or svc.sketch} dtype={cls.compute_dtype or svc.compute_dtype}: "
+              f"{rec['requests']} requests, "
               f"{rec['requests'] / rec['seconds']:.2f} req/s, statuses {hist}, "
               f"m_final min/median/max {m[0]}/{m[len(m) // 2]}/{m[-1]}, "
               f"max δ̃ {max(dts) if dts else float('nan'):.3e}, "
@@ -308,16 +456,18 @@ def phase_main_path(dev="cuda"):
               f"2-norm {max(r[2] for r in rows):.3e}, against the fp64 solve of "
               f"the fp32 normal equations: H-norm {max(r[3] for r in rows):.3e}; "
               f"worst share of tolerance {max(r[4] for r in rows):.3f}, "
-              f"launches {rec['launches']}")
-    print(f"[main] worst H-norm rel err vs fp64 direct solve, as a share of its "
+              f"launches {({k: v for k, v in rec['launches'].items() if v})}")
+    print(f"{tag} worst H-norm rel err vs fp64 direct solve, as a share of its "
           f"tolerance max({SOLVE_REL_TOL:g}, 2^-24·κ(H)·√k): {worst:.3f}")
     if failures:
         raise SystemExit(f"chip_smoke: main path failures (id, status, rel err, "
                          f"tolerance): {failures[:10]}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    family = {"gaussian": "gaussian_sa", "sjlt": "sjlt"}[sketch]
+    missing = [k for k in (ops.leg(family, compute_dtype), ops.leg("fwht", compute_dtype))
+               if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"chip_smoke: kernels {missing} were never launched on "
-                         "the main path")
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched "
+                         f"by the {sketch}/{compute_dtype} service run")
     return launches
 
 
@@ -330,6 +480,15 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     launches = phase_main_path()
+    for i, (sketch, cd) in enumerate(MODES):
+        run = phase_main_path(sketch=sketch, compute_dtype=cd, traffic=MODE_TRAFFIC,
+                              seed=2 + i)
+        launches = {k: launches[k] + run[k] for k in launches}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched on "
+                         "the main path")
+    print(f"[main] launches per kernel leg over the six service runs: {launches}")
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

@@ -36,7 +36,8 @@ def quadratic_from_numpy(A, b, nu, lam_diag, row_weights=None, *,
 
 def sample_from_numpy(sample: dict, *, device=None) -> dict:
     """A provider's sample dict from numpy: ``seeds`` (B,) uint32 → int64,
-    or the SRHT's ``signs`` (B, n) → fp32 and ``rows`` (B, m_max) → int64."""
+    the SRHT's ``signs`` (B, n) → fp32 and ``rows`` (B, m_max) → int64, or
+    the SJLT's ``u`` (B, n) → fp32 and ``signs``."""
     dev = resolve_device(device)
     out = {}
     for k, v in sample.items():
@@ -45,7 +46,7 @@ def sample_from_numpy(sample: dict, *, device=None) -> dict:
             out[k] = _tensor(v.astype(np.uint32).astype(np.int64), torch.int64, dev)
         elif k == "rows":
             out[k] = _tensor(v.astype(np.int64), torch.int64, dev)
-        elif k == "signs":
+        elif k in ("signs", "u"):
             out[k] = _tensor(v, torch.float32, dev)
         else:
             raise ValueError(f"unknown sample field {k!r}")

@@ -10,18 +10,27 @@ Randomness: JAX's threefry keys cannot be reproduced without JAX, so the
 port's per-problem "key" is a uint32 seed held in an int64 tensor, and
 problem b's sketch depends only on seed b. The Gaussian families use the
 seed directly (the reference's ``_uint32_seeds(keys)`` is exactly such a
-seed, so tests can hand it over). The SRHT draws its signs and rows from the
-same murmur3 counter hash, keyed by ``fold_seeds(seed, 0)`` and
-``fold_seeds(seed, 1)``, so its sample is the same on the CPU and on the
-card.
+seed, so tests can hand it over). The SRHT and the SJLT draw their samples
+from the same murmur3 counter hash, keyed by ``fold_seeds(seed, 0)`` and
+``fold_seeds(seed, 1)``, so a sample is the same on the CPU and on the
+card; the tests hand the reference's ``jax.random`` samples over through
+``bridge.sample_from_numpy``.
 
 * ``gaussian`` — streamed: S is generated inside the fused sketch→SA kernel
   and never stored; level m is the first m rows, rescaled by 1/m on the Gram.
 * ``gaussian_dense`` — the same entries, materialized as (B, m_max, n):
   the memory baseline.
+* ``sjlt`` — each data row i carries a uniform u_i and a sign; its level-m
+  target is ⌊u_i·m⌋, and ⌊u·m⌋ = ⌊⌊u·2m⌋/2⌋ makes each pow2 level a
+  pairwise row fold of the level above. ONE kernel pass at the top power of
+  two M ≥ m_max, then the folds; a non-pow2 cap folds the M − m_max tail
+  rows back onto the head.
 * ``srht`` — one sign flip + one FWHT pass over A, then level m = the first
   m rows of a row stream drawn i.i.d. uniform WITH replacement, so every
   prefix is a valid m-row sample (the reference's law).
+
+Compute dtype (``kernels.precision``): every provider applies it to the
+sketch pass only; the (L, B, d, d) Grams it returns are fp32 in every mode.
 """
 
 from __future__ import annotations
@@ -34,8 +43,15 @@ from repro_torch.kernels.gaussian_gram import (
     _mix,
     counter_hash,
     gaussian_s_dense,
+    resolve_stream,
 )
-from repro_torch.kernels.precision import require_fp32
+# COMPUTE_DTYPES is re-exported for the launchers, as in the reference
+from repro_torch.kernels.precision import (  # noqa: F401
+    COMPUTE_DTYPES,
+    canonical_compute_dtype,
+    contract_dtype,
+    round_to,
+)
 
 from .quadratic import Quadratic
 
@@ -53,12 +69,14 @@ def prefix_level_grams(R: torch.Tensor, ladder: tuple[int, ...], *,
                        inv_m_scale: bool) -> torch.Tensor:
     """(L, B, d, d) Grams from a (B, m_max, d) row stream whose level-m
     sketch is the first m rows: prefix-summed per-segment row Grams, with
-    the per-level 1/√m entry rescale folded in as 1/m when asked."""
+    the per-level 1/√m entry rescale folded in as 1/m when asked. A bf16
+    row stream (the reduced modes) accumulates into fp32 Grams: its products
+    are exact in fp32 and its sums fp32."""
     B, _, d = R.shape
     grams, prev = [], 0
     acc = torch.zeros((B, d, d), dtype=torch.float32, device=R.device)
     for m in ladder:
-        seg = R[:, prev:m, :]
+        seg = R[:, prev:m, :].to(torch.float32)
         acc = acc + torch.bmm(seg.transpose(1, 2), seg)
         grams.append(acc / m if inv_m_scale else acc)
         prev = m
@@ -88,14 +106,63 @@ class GaussianDenseProvider:
         return {"seeds": seeds}
 
     def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
-        require_fp32(compute_dtype)
-        S = gaussian_s_dense(data["seeds"], ladder[-1], q.n)
-        SA = torch.matmul(S, q.A)
+        # the streamed provider's scale algebra, on the materialized S
+        seeds = data["seeds"]
+        A, scale = resolve_stream(q.A, seeds.shape[0], None, compute_dtype)
+        S = gaussian_s_dense(seeds, ladder[-1], q.n)
+        if scale is not None:
+            S = S * scale[:, None, :]
+        ct = contract_dtype(compute_dtype)
+        SA = torch.matmul(round_to(S, ct), round_to(A, ct))
         return prefix_level_grams(SA, ladder, inv_m_scale=True)
 
 
 def _n_pad(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _hash_stream(seeds: torch.Tensor, tag: int, length: int) -> torch.Tensor:
+    """(B, length) uint32 words (int64 carrier) of stream ``tag`` of each
+    problem's seed."""
+    ctr = torch.arange(length, dtype=torch.int64, device=seeds.device)
+    return counter_hash(fold_seeds(seeds, tag), ctr)
+
+
+def _signs(h: torch.Tensor) -> torch.Tensor:
+    """±1 fp32 from the top bit of each hash word."""
+    return 1.0 - 2.0 * (h >> 31).to(torch.float32)
+
+
+class SJLTProvider:
+    """s = 1 SJLT ladder: one kernel pass at the top power of two, folds below."""
+
+    name = "sjlt"
+
+    def sample(self, seeds, m_max, n):
+        # u = (h >> 8)·2^-24: uniform on the 2^24 fp32 grid points of [0, 1)
+        u = (_hash_stream(seeds, 0, n) >> 8).to(torch.float32) * (1.0 / 16777216.0)
+        return {"u": u, "signs": _signs(_hash_stream(seeds, 1, n))}
+
+    def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
+        u, signs = data["u"], data["signs"]
+        m_max = ladder[-1]
+        M = _n_pad(m_max)                              # top pow2 ≥ m_max
+        rows = torch.clamp(torch.floor(u * float(M)), 0, M - 1).to(torch.int32)
+        SA = ops.sjlt_apply_batched(q.A, rows, signs, M,        # the ONE touch
+                                    compute_dtype=compute_dtype)
+        by_m = {M: SA}
+        m = M
+        while m > 1:                    # ⌊u·m⌋ = ⌊⌊u·2m⌋/2⌋: pairwise fold
+            SA = SA[:, 0::2, :] + SA[:, 1::2, :]
+            m //= 2
+            by_m[m] = SA
+        if m_max != M:                  # non-pow2 cap: fold the tail rows
+            top = by_m[M]
+            head, tail = top[:, :m_max, :], top[:, m_max:, :]
+            by_m[m_max] = head + torch.nn.functional.pad(
+                tail, (0, 0, 0, 2 * m_max - M))
+        return torch.stack([torch.bmm(by_m[m].transpose(1, 2), by_m[m])
+                            for m in ladder])
 
 
 class SRHTProvider:
@@ -104,15 +171,9 @@ class SRHTProvider:
     name = "srht"
 
     def sample(self, seeds, m_max, n):
-        n_pad = _n_pad(n)
-        dev = seeds.device
-        h_sign = counter_hash(fold_seeds(seeds, 0),
-                              torch.arange(n, dtype=torch.int64, device=dev))
-        h_rows = counter_hash(fold_seeds(seeds, 1),
-                              torch.arange(m_max, dtype=torch.int64, device=dev))
-        signs = 1.0 - 2.0 * (h_sign >> 31).to(torch.float32)
         # n_pad is a power of two, so the low bits are an unbiased draw
-        return {"signs": signs, "rows": h_rows & (n_pad - 1)}
+        return {"signs": _signs(_hash_stream(seeds, 0, n)),
+                "rows": _hash_stream(seeds, 1, m_max) & (_n_pad(n) - 1)}
 
     def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
         signs, rows = data["signs"], data["rows"]
@@ -120,6 +181,13 @@ class SRHTProvider:
         n, d = q.n, q.d
         n_pad = _n_pad(n)
         X, scale = q.A, signs
+        if canonical_compute_dtype(compute_dtype) == "int8":
+            # quantize before the pad so the padded copy is 1 B/elem; the
+            # dequantization scales join the fused row scale
+            from repro_torch.dist.compress import quantize_rows
+
+            X, a_scales = quantize_rows(X)
+            scale = scale * a_scales        # shared A: (n,) broadcasts over B
         if n_pad != n:
             X = torch.nn.functional.pad(X, (0, 0, 0, n_pad - n))
             scale = torch.nn.functional.pad(scale, (0, n_pad - n))
@@ -130,7 +198,8 @@ class SRHTProvider:
 
 
 _PROVIDERS = {p.name: p for p in (
-    GaussianStreamedProvider(), GaussianDenseProvider(), SRHTProvider())}
+    GaussianStreamedProvider(), GaussianDenseProvider(), SJLTProvider(),
+    SRHTProvider())}
 
 PADDED_SKETCHES = tuple(_PROVIDERS)
 
@@ -140,10 +209,6 @@ def get_provider(sketch):
     instances pass through unchanged."""
     if not isinstance(sketch, str):
         return sketch
-    if sketch == "sjlt":
-        raise NotImplementedError(
-            "the sjlt family is not ported yet (ROADMAP queue 1 item 6, "
-            "queue 2 items 4-5)")
     try:
         return _PROVIDERS[sketch]
     except KeyError:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C launch functions, so it compiles in
 seconds without PyTorch's headers. A library is built at first use into
 ``build/repro_torch_kernels/`` under the checkout's root (``.gitignore``
-lists ``build/``), named by a hash of its source and flags, so a changed
-source rebuilds and an unchanged one loads at once. A missing ``nvcc`` or a
+lists ``build/``), named by a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, so a changed source rebuilds and an unchanged one
+loads at once. A missing ``nvcc`` or a
 failed build raises: there is no fallback.
 
 ``--use_fast_math`` is deliberately absent: it turns ``logf``/``cosf`` into
@@ -28,11 +29,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every launch function: argument types, by library
 SIGNATURES = {
-    "gaussian_sa": {"gaussian_sa_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P)},
-    "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _P)},
+    "gaussian_sa": {"gaussian_sa_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P)},
+    "sjlt": {"sjlt_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def a_kind(dtype, round_bf16: bool) -> int | None:
+    """The ``a_kind`` argument of gaussian_sa.cu and sjlt.cu (``AKind`` in
+    csrc/a_stream.cuh):
+    how the kernel reads A, by A's torch dtype and whether the pass rounds
+    its operands to bf16. None for a combination the kernels do not take."""
+    import torch
+
+    return {(torch.float32, False): 0, (torch.float32, True): 1,
+            (torch.bfloat16, True): 2, (torch.int8, True): 3}.get((dtype, round_bf16))
 
 
 def _nvcc() -> str:
@@ -46,7 +59,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -7,6 +7,11 @@ function of (seed_b, r, c): the murmur3 finalizer of the uint32 counter
 kernel (``csrc/gaussian_sa.cu``) draw the same entries; the hash words are
 bitwise those of the JAX reference.
 
+The compute dtype (``kernels.precision``) enters through ``resolve_stream``:
+in bf16 and int8 mode the scaled S entry and the A element are rounded to
+bf16 and multiplied exactly in fp32, with fp32 sums; int8 mode streams the
+per-row codes of A and folds their scales into the column scale.
+
 This torch has no uint32 shifts or adds on the CPU, so the plain hash runs
 in int64 masked to 32 bits, with every 32×32-bit product split into 16-bit
 halves so that no intermediate overflows int64. Seeds are uint32 values
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .precision import canonical_compute_dtype, contract_dtype, round_to
 
 # Canonical micro-tile of the n axis: the plain version always reduces n in
 # _MICRO-column steps, so its chunk size never changes the numbers.
@@ -93,19 +99,43 @@ def gaussian_s_dense(seeds: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return gaussian_tile(seeds, 0, 0, (m, n))
 
 
+def resolve_stream(A: torch.Tensor, B: int, row_weights: torch.Tensor | None,
+                   compute_dtype: str | None):
+    """The Gaussian family's compute-dtype prep: (A_stream, scale (B, n) or
+    None). Everything that scales the columns of S folds into ONE fp32
+    column scale: w^{1/2} and, in int8 mode, the per-row dequantization
+    scales of A, whose int8 codes then stream in place of A."""
+    scale = None if row_weights is None else torch.sqrt(row_weights.to(torch.float32))
+    if canonical_compute_dtype(compute_dtype) == "int8" and A.dtype != torch.int8:
+        from repro_torch.dist.compress import quantize_rows
+
+        A, a_scales = quantize_rows(A)
+        if A.dim() == 2:                      # shared A: one scale row per problem
+            a_scales = a_scales[None, :].expand(B, A.shape[0])
+        scale = a_scales if scale is None else scale * a_scales
+    return A, scale
+
+
 def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
                     chunk_cols: int = 2048,
-                    scale: torch.Tensor | None = None) -> torch.Tensor:
+                    scale: torch.Tensor | None = None,
+                    compute_dtype: str | None = None) -> torch.Tensor:
     """Plain streamed S·diag(scale)·A, (B, m, d) fp32, from A (n, d) shared
-    or (B, n, d) per problem, seeds (B,) and an optional (B, n) column scale.
+    or (B, n, d) per problem (fp32, bf16 or, in int8 mode, int8 codes),
+    seeds (B,) and an optional (B, n) column scale (``resolve_stream``).
 
     Each step generates a chunk of S and reduces it in fixed _MICRO-column
     micro-tiles, so the sequence of partial products, and so the result bit
     for bit, does not depend on ``chunk_cols``: zero padding adds exact
-    zeros. The live sketch state is one (B, m, chunk) tile."""
+    zeros. In bf16 and int8 mode the scaled S micro-tile and the A slice are
+    rounded to bf16 elementwise, which keeps that invariance per dtype. The
+    live sketch state is one (B, m, chunk) tile."""
     n, d = A.shape[-2], A.shape[-1]
     B = seeds.shape[0]
     check_caps(n, m)
+    ct = contract_dtype(compute_dtype)
+    if A.dtype == torch.int8 and ct != torch.bfloat16:
+        raise ValueError("int8 codes stream only in the bf16/int8 modes")
     k = max(1, -(-chunk_cols // _MICRO))
     k = min(k, -(-n // _MICRO))
     chunk = k * _MICRO
@@ -119,23 +149,29 @@ def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
         S = gaussian_tile(seeds, 0, c0, (m, chunk))
         if scale is not None:
             S = S * scale[:, None, c0:c0 + chunk]
+        S = round_to(S, ct)
         for i in range(k):
             s_mu = S[:, :, i * _MICRO:(i + 1) * _MICRO]
-            a_mu = A[..., c0 + i * _MICRO:c0 + (i + 1) * _MICRO, :]
+            a_mu = round_to(A[..., c0 + i * _MICRO:c0 + (i + 1) * _MICRO, :], ct)
             acc = acc + torch.matmul(s_mu, a_mu)
     return acc
 
 
 def gaussian_sa_cuda(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
-                     scale: torch.Tensor | None = None) -> torch.Tensor:
+                     scale: torch.Tensor | None = None,
+                     compute_dtype: str | None = None) -> torch.Tensor:
     """Launch ``csrc/gaussian_sa.cu`` on the current stream: same contract
     as ``gaussian_sa_ref``, for CUDA tensors."""
     shared = A.dim() == 2
     n, d = A.shape[-2], A.shape[-1]
     B = seeds.shape[0]
     check_caps(n, m)
-    if A.dtype != torch.float32 or not A.is_contiguous():
-        raise ValueError("gaussian_sa kernel takes a contiguous fp32 A")
+    kind = _build.a_kind(A.dtype, contract_dtype(compute_dtype) == torch.bfloat16)
+    if kind is None or not A.is_contiguous():
+        raise ValueError(
+            f"gaussian_sa kernel takes a contiguous A of fp32 (any mode), bf16 "
+            f"or int8 codes (bf16/int8 modes); got {A.dtype} in "
+            f"{canonical_compute_dtype(compute_dtype)} mode")
     if seeds.dtype != torch.int64 or seeds.shape != (B,):
         raise ValueError("gaussian_sa kernel takes (B,) int64 seeds")
     if not shared and A.shape[0] != B:
@@ -153,6 +189,6 @@ def gaussian_sa_cuda(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
     code = lib.gaussian_sa_launch(
         A.data_ptr(), 0 if shared else n * d, seeds.data_ptr(),
         None if scale is None else scale.data_ptr(), out.data_ptr(),
-        B, n, d, m, torch.cuda.current_stream(A.device).cuda_stream)
+        B, n, d, m, kind, torch.cuda.current_stream(A.device).cuda_stream)
     _build.check_launch(code, "gaussian_sa")
     return out

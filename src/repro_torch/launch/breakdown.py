@@ -1,10 +1,11 @@
 """Where the time of one packed ridge batch goes, phase by phase, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.breakdown [--device cuda] [--reps 3]
+    PYTHONPATH=src python -m repro_torch.launch.breakdown [--device cuda] [--reps 3] \
+        [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8]
 
-Packs one full batch of the top Gaussian class (n=4096, d=256, m_max=512)
-and one of the SRHT class (n=16384, d=256, m_max=512) from the default
-service, with the main-path traffic of ``chip_smoke.py`` (A = U·diag(0.95^i)·Vᵀ,
+Packs one full batch of the top class (n=4096, d=256, m_max=512), under
+``--sketch`` (default gaussian), and one of the SRHT class (n=16384, d=256,
+m_max=512), both with the sketch pass in ``--dtype``, with the main-path traffic of ``chip_smoke.py`` (A = U·diag(0.95^i)·Vᵀ,
 ν log-uniform in [1e-3, 1e-1]), and runs the engine's pieces in order,
 synchronizing the device after each, so each phase's wall time is its own:
 pack, sketch pass (the kernel plus the prefix Grams), ladder factorization
@@ -26,6 +27,7 @@ import time
 import torch
 
 from repro_torch.core import adaptive_padded as ap
+from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
 from repro_torch.core.robust import robust_padded_solve_batched
 from repro_torch.serve.solver_service import RidgeRequest, SolverService
 
@@ -52,6 +54,7 @@ def _sync(dev):
 def _phases(svc, cls, reqs):
     """Wall seconds of each engine phase, in order, for one packed batch."""
     dev, sketch = svc.device, cls.sketch or svc.sketch
+    cd = cls.compute_dtype or svc.compute_dtype
     times = {}
 
     def timed(name, fn):
@@ -64,7 +67,7 @@ def _phases(svc, cls, reqs):
 
     q, seeds = timed("pack", lambda: svc._pack(cls, reqs))
     grams = timed("sketch_pass", lambda: ap._compute_ladder_grams(
-        q, seeds, m_max=cls.m_max, sketch=sketch, compute_dtype="fp32"))
+        q, seeds, m_max=cls.m_max, sketch=sketch, compute_dtype=cd))
     tables = timed("factorize", lambda: ap._ladder_tables(q, grams, guards=True))
     G = timed("gram_precompute", lambda: ap._gram_precompute(q, None))
     pre = ap.PaddedPrecompute(*tables, G_full=G)
@@ -93,8 +96,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--sketch", default="gaussian", choices=PADDED_SKETCHES)
+    p.add_argument("--dtype", default="fp32", choices=COMPUTE_DTYPES)
     args = p.parse_args(argv)
-    svc = SolverService(device=args.device)
+    svc = SolverService(sketch=args.sketch, compute_dtype=args.dtype,
+                        device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(2)
     classes = {c.n: c for c in svc.shape_classes}
@@ -108,7 +114,8 @@ def main(argv=None):
             x, stats = robust_padded_solve_batched(
                 q, seeds, m_max=cls.m_max, method=svc.method,
                 sketch=cls.sketch or svc.sketch, max_iters=svc.max_iters,
-                rho=svc.rho, tol=svc.tol, device=dev)
+                rho=svc.rho, tol=svc.tol, compute_dtype=svc.compute_dtype,
+                device=dev)
             _sync(dev)
             return stats
 
@@ -121,6 +128,7 @@ def main(argv=None):
         wall = statistics.median(walls)
         print(json.dumps({
             "class": list(cls[:3]) + [cls.sketch or svc.sketch],
+            "compute_dtype": svc.compute_dtype,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "batch": svc.batch_size, "trips": runs[0][1],
             "phases_s": phases, "solve_s": wall,

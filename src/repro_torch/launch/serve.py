@@ -2,11 +2,15 @@
 shape-class bucketing and batched adaptive engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
+        [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
         [--device cuda|cpu]
 
 Mirrors ``repro.launch.serve --ridge`` for ridge traffic only; the data is
-drawn from a seeded ``torch.Generator`` on the chosen device. LM serving,
-GLM and path traffic, meshes and deadlines are not ported yet.
+drawn from a seeded ``torch.Generator`` on the chosen device. ``--sketch``
+is the service's default family (the n = 16384 class keeps its SRHT) and
+``--dtype`` the sketch pass's precision; certificates stay fp32 and record
+both. LM serving, GLM and path traffic, meshes and deadlines are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -16,11 +20,13 @@ import time
 
 import torch
 
+from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
 from repro_torch.serve.solver_service import SolverService
 
 
 def serve_ridge(args) -> dict:
-    svc = SolverService(method="pcg", device=args.device)
+    svc = SolverService(method="pcg", sketch=args.sketch,
+                        compute_dtype=args.dtype, device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     for _ in range(args.requests):
@@ -33,7 +39,8 @@ def serve_ridge(args) -> dict:
     t0 = time.perf_counter()
     sols = svc.flush()
     dt = time.perf_counter() - t0
-    print(f"solver service on {dev}: {len(sols)} requests in {dt:.2f}s "
+    print(f"solver service on {dev} (sketch={args.sketch}, dtype={args.dtype}): "
+          f"{len(sols)} requests in {dt:.2f}s "
           f"({len(sols) / dt:.1f} req/s) — {svc.stats['batches']} batches of "
           f"{svc.batch_size}, {svc.stats['padded_slots']} padded slots "
           f"({100 * svc.slot_utilization():.0f}% slot utilization)")
@@ -59,6 +66,12 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sketch", default="gaussian", choices=PADDED_SKETCHES,
+                   help="sketch family of the ridge service")
+    p.add_argument("--dtype", default="fp32", choices=COMPUTE_DTYPES,
+                   help="sketch-pass compute dtype: bf16 rounds the sketch "
+                        "operands to bfloat16 with fp32 sums, int8 also "
+                        "quantizes A per row; certificates stay fp32")
     serve_ridge(p.parse_args(argv))
 
 

@@ -118,3 +118,157 @@ def test_engine_on_card_matches_cpu(dev):
         for k in ("status", "m_final"):
             assert torch.equal(out["cuda"][k], out["cpu"][k]), (sketch, k)
         assert int((out["cuda"]["iters"] - out["cpu"]["iters"]).abs().max()) <= 2
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("n,d,M", [(300, 9, 16), (777, 300, 64), (4096, 256, 512),
+                                   (2048, 130, 1)])
+def test_sjlt_kernel_matches_plain(dev, compute_dtype, shared, n, d, M):
+    """Ragged tiles, out-of-range targets (negative and ≥ M) and all three
+    modes. Against the plain version on the card (index_add_ with atomics,
+    so another order of the fp32 sums of exact products): 1e-5 of max|SA|.
+    Against the plain version on the CPU, whose index_add_ adds in
+    increasing i as the kernel does: bitwise."""
+    from repro_torch.kernels import sjlt as ts
+
+    B = 3
+    g = torch.Generator(device=dev).manual_seed(n + d + M)
+    A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
+    rows = torch.randint(-2, M + 3, (B, n), generator=g, device=dev, dtype=torch.int32)
+    signs = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    before = ops.LAUNCHES[ops.leg("sjlt", compute_dtype)]
+    got = ops.sjlt_apply_batched(A, rows, signs, M, compute_dtype=compute_dtype)
+    assert ops.LAUNCHES[ops.leg("sjlt", compute_dtype)] == before + 1
+    want = ts.sjlt_ref_batched(A, rows, signs, M, compute_dtype)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    cpu = ts.sjlt_ref_batched(A.cpu(), rows.cpu(), signs.cpu(), M, compute_dtype)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+def test_sjlt_kernel_repeats_bitwise(dev, compute_dtype):
+    """No atomics: two launches on the same inputs are bitwise equal, and
+    the single-problem form is the batched kernel's B = 1 shared-A case."""
+    from repro_torch.kernels import sjlt as ts
+
+    B, n, d, M = 16, 4096, 256, 512
+    g = torch.Generator(device=dev).manual_seed(1)
+    A = torch.randn((B, n, d), generator=g, device=dev)
+    rows = torch.randint(0, M, (B, n), generator=g, device=dev, dtype=torch.int32)
+    signs = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    first = ts.sjlt_cuda_batched(A, rows, signs, M, compute_dtype)
+    assert torch.equal(ts.sjlt_cuda_batched(A, rows, signs, M, compute_dtype), first)
+    one = ts.sjlt_cuda(A[0], rows[0], signs[0], M, compute_dtype)
+    assert torch.equal(one, ts.sjlt_cuda_batched(A[0], rows[:1], signs[:1], M,
+                                                 compute_dtype)[0])
+    assert torch.equal(one.cpu(), ts.sjlt_ref(A[0].cpu(), rows[0].cpu(), signs[0].cpu(),
+                                              M, compute_dtype))
+
+
+@pytest.mark.parametrize("compute_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("n,d,m", [(777, 130, 70), (4096, 256, 512)])
+def test_gaussian_sa_reduced_legs_match_plain(dev, compute_dtype, shared, scaled, n, d, m):
+    """The bf16 and int8 legs against the plain version on the card: fp32
+    sums in another order (1e-4 of max|SA|), plus one bf16 flip of an S entry
+    per output entry, 2^-8·max|S·scale|·max|A|, where the kernel's logf/cosf
+    and torch's log/cos put the entry on two sides of a bf16 boundary."""
+    B = 3
+    g = torch.Generator(device=dev).manual_seed(n + d + 1)
+    A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
+    w = torch.rand((B, n), generator=g, device=dev) + 0.5 if scaled else None
+    leg = ops.leg("gaussian_sa", compute_dtype)
+    before = ops.LAUNCHES[leg]
+    got = ops.gaussian_sa(A, seeds, m, row_weights=w, compute_dtype=compute_dtype)
+    assert ops.LAUNCHES[leg] == before + 1
+    A_s, scale = tg.resolve_stream(A, B, w, compute_dtype)
+    want = tg.gaussian_sa_ref(A_s, seeds, m, scale=scale, compute_dtype=compute_dtype)
+    S = tg.gaussian_s_dense(seeds, m, n)
+    s_max = float((S * (1.0 if scale is None else scale[:, None, :])).abs().max())
+    atol = 1e-4 * float(want.abs().max()) + 2.0 ** -8 * s_max * float(A_s.float().abs().max())
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("compute_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n", [8, 2048, 16384])
+@pytest.mark.parametrize("d", [1, 33, 256])
+def test_fwht_reduced_legs_bitwise_plain(dev, compute_dtype, n, d):
+    """bf16 tiles: the input (fp32, or int8 codes) and the row scale cast to
+    bf16, their product and every stage rounded to bf16. Bitwise the
+    one-pass bf16 butterfly; a bf16 result."""
+    from repro_torch.dist.compress import quantize_rows
+
+    B = 2
+    g = torch.Generator(device=dev).manual_seed(n * 5 + d)
+    X = torch.randn((B, n, d), generator=g, device=dev)
+    s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    s = s * (torch.rand((B, n), generator=g, device=dev) + 0.5)
+    if compute_dtype == "int8":
+        X = quantize_rows(X)[0]
+    leg = ops.leg("fwht", compute_dtype)
+    before = ops.LAUNCHES[leg]
+    got = ops.fwht_cols(X, row_scale=s, compute_dtype=compute_dtype)
+    assert ops.LAUNCHES[leg] == before + len(tf.split_plan(n, 2))
+    bf = torch.bfloat16
+    want = tf.fwht_ref(X.to(bf) * s.to(bf)[:, :, None])
+    torch.cuda.synchronize()
+    assert got.dtype == bf and torch.equal(got, want)
+
+
+def test_fwht_bf16_shared_input(dev):
+    """A shared fp32 (n, d) input, read at batch stride 0, in the bf16 leg."""
+    B, n, d = 3, 16384, 20
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn((n, d), generator=g, device=dev)
+    s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    got = ops.fwht_cols(X, row_scale=s, batch=B, compute_dtype="bf16")
+    bf = torch.bfloat16
+    assert torch.equal(got, tf.fwht_ref(X.to(bf)[None] * s.to(bf)[:, :, None]))
+
+
+@pytest.mark.parametrize("sketch,compute_dtype", [("sjlt", "fp32"), ("sjlt", "bf16"),
+                                                  ("sjlt", "int8"), ("gaussian", "bf16"),
+                                                  ("gaussian", "int8"), ("srht", "int8")])
+def test_engine_modes_on_card_match_cpu(dev, sketch, compute_dtype):
+    """The padded engine on the card (through the kernel legs) and on the CPU
+    (through the plain versions) in each family and mode: status and m_final
+    equal, iters within ±2, and each x within max(1e-4, 2^-24·κ(H)·√k) of
+    the fp64 solution in the energy norm, as in the fp32 test above."""
+    from repro_torch.core.adaptive_padded import padded_adaptive_solve_batched
+    from repro_torch.core.quadratic import from_least_squares_batch
+
+    B, n, d = 4, 2048, 64
+    g = torch.Generator().manual_seed(0)
+    U, _ = torch.linalg.qr(torch.randn((B, n, d), generator=g))
+    V, _ = torch.linalg.qr(torch.randn((B, d, d), generator=g))
+    A = (U * (0.9 ** torch.arange(d))[None, None, :]) @ V.transpose(1, 2)
+    Y = torch.randn((B, n), generator=g)
+    nus = torch.tensor([0.3, 0.1, 0.05, 0.02])
+    seeds = torch.tensor([1, 2, 3, 4], dtype=torch.int64)
+    A64 = A.double()
+    H = A64.transpose(1, 2) @ A64 + torch.diag_embed(
+        (nus.double() ** 2)[:, None].expand(B, d))
+    x64 = torch.linalg.solve(H, (A64.transpose(1, 2) @ Y.double()[:, :, None]))[..., 0]
+    ev = torch.linalg.eigvalsh(H)
+    kappa = ev[:, -1] / ev[:, 0]
+    out = {}
+    for where in ("cpu", "cuda"):
+        q = from_least_squares_batch(A.to(where), Y.to(where), nus.to(where))
+        x, st = padded_adaptive_solve_batched(
+            q, seeds.to(where), m_max=128, method="pcg", sketch=sketch,
+            max_iters=100, compute_dtype=compute_dtype, device=where)
+        k = st["iters"].cpu().clamp(min=1).double()
+        tol = torch.clamp(2.0 ** -24 * kappa * k.sqrt(), min=1e-4)
+        e = x.cpu().double() - x64
+        err = torch.sqrt(torch.einsum("bi,bij,bj->b", e, H, e)
+                         / torch.einsum("bi,bij,bj->b", x64, H, x64))
+        assert bool((err <= tol).all()), (where, err, tol)
+        out[where] = {k: v.cpu() for k, v in st.items()}
+    for k in ("status", "m_final"):
+        assert torch.equal(out["cuda"][k], out["cpu"][k]), k
+    assert int((out["cuda"]["iters"] - out["cpu"]["iters"]).abs().max()) <= 2

@@ -180,8 +180,16 @@ def test_fwht_split_plan_fits_shared_memory():
 
 
 def test_reduced_precision_not_ported():
-    A = torch.zeros((1, 256, 4))
-    with pytest.raises(NotImplementedError):
-        ops.gaussian_sa(A, _tseeds([1]), 8, compute_dtype="bf16")
-    with pytest.raises(NotImplementedError):
-        ops.fwht_cols(A, compute_dtype="int8")
+    """The bf16 and int8 legs, which raised NotImplementedError before they
+    were ported, now run: fp32 SA from the Gaussian pass, a bf16 stack from
+    the FWHT (their parity with the reference is in
+    tests/test_torch_precision.py). A mode outside COMPUTE_DTYPES raises."""
+    A = torch.ones((1, 256, 4))
+    sa = ops.gaussian_sa(A, _tseeds([1]), 8, compute_dtype="bf16")
+    assert sa.dtype == torch.float32 and bool(torch.isfinite(sa).all())
+    hx = ops.fwht_cols(A, compute_dtype="int8")
+    assert hx.dtype == torch.bfloat16 and float(hx[0, 0, 0]) == 256.0
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ops.gaussian_sa(A, _tseeds([1]), 8, compute_dtype="fp16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ops.fwht_cols(A, compute_dtype="int4")
