@@ -7,13 +7,16 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every CUDA kernel of ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all started together;
+   nvcc, one process per source, all started together, and count each
+   library's tensor-core instructions in its SASS (the bf16/int8 Gaussian
+   leg must have some);
 3. kernels against plain: at the main path's shapes, hold each kernel and
    each compute-dtype leg (fp32, bf16, int8) against its plain PyTorch
    version and time both (CUDA events, warm, median), beside the least time
    the card could take for the same work and a one-call PyTorch yardstick
-   where one exists; the SJLT kernel also runs twice and must repeat
-   bitwise;
+   where one exists; the Gaussian and SJLT kernels also run twice and must
+   repeat bitwise, and the Gaussian kernel's Box–Muller factors must equal
+   the CUDA math library's on all 2^24 values of each uniform;
 4. main path: a default ``SolverService`` on the card answers ridge
    requests of every default shape class (two full batches of the top
    Gaussian class, one of the SRHT class, and the three smaller classes);
@@ -21,14 +24,15 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    {gaussian, sjlt} × {fp32, bf16, int8} other than (gaussian, fp32), each
    answer two full batches of the top class and one of the SRHT class. Every
    answer is held against an fp64 direct solve; the launch counts are set to
-   0 before each run and read after it, and every kernel leg must have been
-   launched;
+   0 before each run and read after it, every kernel leg must have been
+   launched, and each FWHT call of the SRHT class must be one launch;
 5. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +48,17 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# Issue rate of the H100 SXM: 132 SMs × 4 schedulers × 32 lanes at the
+# 1.98 GHz boost clock (the clock of PEAK_FP32_FLOPS = 132·128·2·1.98e9), in
+# thread instructions per second
+PEAK_INSTR = 132 * 4 * 32 * 1.98e9
+# Operations the Gaussian kernel spends on one S entry, counted by hand in
+# its source (csrc/gaussian_sa.cu: mix32, uniforms, radius, cosine), taken
+# as one instruction each: the counter and two murmur3 finalizers 18, the
+# two uniforms 7, logf 18, sqrtf 7, cosf 22, the product and the column
+# scale 2. An estimate, not a count of the compiled code, so it is printed
+# with its derivation and kept out of the kernels line.
+GEN_INSTR_PER_ENTRY = 74
 # kernel vs plain: fp32 sums of n products taken in two orders differ by
 # about sqrt(n)·2^-24 of the result's scale; an indexing fault shows as O(1)
 GAUSSIAN_REL_TOL = 1e-4
@@ -125,6 +140,17 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # tensor-core instructions (wgmma: HGMMA; mma.sync: HMMA) in each
+    # library's SASS
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    for name in _build.SIGNATURES:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+        print(f"[build] {name}: tensor-core instructions in SASS {counts}")
+        if name == "gaussian_sa" and not counts["HGMMA"] + counts["HMMA"]:
+            raise SystemExit("chip_smoke: the bf16/int8 Gaussian leg has no tensor-core "
+                             "instruction")
 
 
 def _compare(name, got, want, tol):
@@ -143,12 +169,13 @@ def _compare(name, got, want, tol):
 
 
 def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
-             library=None):
+             library=None, library_ms=None):
     """Hold a kernel call against its plain version and time both, and the
-    one-call PyTorch yardstick ``library`` where there is one."""
+    one-call PyTorch yardstick ``library`` where there is one (or take its
+    time, ``library_ms``, measured once for several rows)."""
     err = _compare(label, kern(), plain(), tol)
     ms, pms = time_ms(kern, reps=10), time_ms(plain, reps=3, warm=1)
-    lms = None if library is None else time_ms(library, reps=10)
+    lms = library_ms if library is None else time_ms(library, reps=10)
     bms, by = bound_ms(flops, nbytes, peak)
     print(f"[kernel] {label}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
           + ("" if lms is None else f", library yardstick {lms:.4f} ms"))
@@ -156,13 +183,24 @@ def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
             "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
 
-def _row(name, source, replaces, recs):
+def _repeats(name, fn):
+    """Two launches of ``fn`` must give bitwise equal results."""
+    import torch
+
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise SystemExit(f"chip_smoke: {name} does not repeat bitwise")
+    print(f"[kernel] {name}: two launches bitwise equal")
+
+
+def _row(name, source, replaces, recs, **extra):
     """One entry of the kernels line: the first measurement is the row's,
     the others are its variants."""
     head = {k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
     return dict(name=name, route="cuda", source=source, replaces=replaces, **head,
-                variants=recs[1:])
+                **extra, variants=recs[1:])
 
 
 def phase_kernels():
@@ -171,8 +209,15 @@ def phase_kernels():
     from repro_torch.dist.compress import quantize_rows
     from repro_torch.kernels import ops
     from repro_torch.kernels import sjlt as ksj
-    from repro_torch.kernels.fwht import fwht_ref
+    from repro_torch.kernels.fwht import (
+        active_clusters,
+        cluster_plan,
+        fwht_ref,
+        hadamard_dense,
+        split_plan,
+    )
     from repro_torch.kernels.gaussian_gram import (
+        entry_mismatches,
         gaussian_s_dense,
         gaussian_sa_cuda,
         gaussian_sa_ref,
@@ -190,26 +235,47 @@ def phase_kernels():
     A_sh = torch.randn((n, d), generator=g, device=dev) / n ** 0.5
     seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
     w = torch.rand((B, n), generator=g, device=dev) + 0.5
+    ws = torch.sqrt(w)
     flops = 2.0 * B * m * n * d
     out_b = 4 * B * m * d + 8 * B
+    bad = entry_mismatches()
+    print(f"[kernel] gaussian_sa Box–Muller: {bad} of the 2·2^24 values of u1 and u2 "
+          f"give another radius sqrt(-2·log u1) or cosine cos(2π·u2) than the CUDA "
+          f"math library's logf/sqrtf and cosf")
+    if bad:
+        raise SystemExit("chip_smoke: the Gaussian kernel's Box–Muller differs from libm's")
+    # what generating S would cost at the card's issue rate, beside the bound
+    gen_ms = B * m * n * GEN_INSTR_PER_ENTRY / PEAK_INSTR * 1e3
+    print(f"[kernel] gaussian_sa generation floor (estimate): {B}·{m}·{n} entries × "
+          f"{GEN_INSTR_PER_ENTRY} operations an entry (counted in the source, one "
+          f"instruction each) / {PEAK_INSTR:.4g} instructions/s "
+          f"(132 SMs × 4 schedulers × 32 lanes × 1.98 GHz) = {gen_ms:.4f} ms")
+
+    # yardsticks: one bmm of the dense S, materialized outside the timing
+    # (pre-scaled for the scaled rows), in the leg's operand dtype
+    bf = torch.bfloat16
+    S = gaussian_s_dense(seeds, m, n)
+    S_w = S * ws[:, None, :]
+    _repeats("gaussian_sa", lambda: ops.gaussian_sa(A, seeds, m))
     recs = [
         _measure("gaussian_sa per-problem A", lambda: ops.gaussian_sa(A, seeds, m),
                  lambda: gaussian_sa_ref(A, seeds, m), 4 * B * n * d + out_b, flops,
-                 GAUSSIAN_REL_TOL,
-                 library=lambda: torch.bmm(gaussian_s_dense(seeds, m, n), A)),
+                 GAUSSIAN_REL_TOL, library=lambda: torch.bmm(S, A)),
         _measure("gaussian_sa shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
                  lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * n * d + out_b, flops,
                  GAUSSIAN_REL_TOL),
-        _measure("gaussian_sa scaled (row weights)",
+        _measure("gaussian_sa scaled (row weights, Pallas row 2)",
                  lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
-                 lambda: gaussian_sa_ref(A, seeds, m, scale=torch.sqrt(w)),
-                 4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL),
+                 lambda: gaussian_sa_ref(A, seeds, m, scale=ws),
+                 4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL,
+                 library=lambda: torch.bmm(S_w, A)),
     ]
     rows.append(_row("gaussian_sa", src + "gaussian_sa.cu", ref_g + ":210", recs))
     # bf16 leg as the service calls it: fp32 A rounded to bf16 on load; and
     # with A stored in bf16
-    A_bf = A.to(torch.bfloat16)
-    S_bf = gaussian_s_dense(seeds, m, n).to(torch.bfloat16)   # yardstick: bf16 bmm
+    A_bf = A.to(bf)
+    S_bf, S_w_bf = S.to(bf), S_w.to(bf)
+    _repeats("gaussian_sa.bf16", lambda: gaussian_sa_cuda(A, seeds, m, compute_dtype="bf16"))
     recs = [
         _measure("gaussian_sa.bf16 (fp32 A)",
                  lambda: gaussian_sa_cuda(A, seeds, m, compute_dtype="bf16"),
@@ -221,24 +287,35 @@ def phase_kernels():
                  lambda: gaussian_sa_ref(A_bf, seeds, m, compute_dtype="bf16"),
                  2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS),
         _measure("gaussian_sa.bf16 scaled (row weights, Pallas row 2)",
-                 lambda: gaussian_sa_cuda(A, seeds, m, scale=torch.sqrt(w),
-                                          compute_dtype="bf16"),
-                 lambda: gaussian_sa_ref(A, seeds, m, scale=torch.sqrt(w),
-                                         compute_dtype="bf16"),
+                 lambda: gaussian_sa_cuda(A, seeds, m, scale=ws, compute_dtype="bf16"),
+                 lambda: gaussian_sa_ref(A, seeds, m, scale=ws, compute_dtype="bf16"),
                  4 * (B * n * d + B * n) + out_b, flops + B * m * n,
-                 GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS),
+                 GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                 library=lambda: torch.bmm(S_w_bf, A_bf)),
     ]
-    del S_bf
-    rows.append(_row("gaussian_sa.bf16", src + "gaussian_sa.cu", ref_g + ":210", recs))
+    # the same bmm with S generated inside the timing by the plain hash
+    gen_incl = time_ms(lambda: torch.bmm(gaussian_s_dense(seeds, m, n).to(bf), A_bf), reps=3)
+    print(f"[kernel] gaussian_sa.bf16 yardstick with generation: bmm(gaussian_s_dense(...)"
+          f".to(bf16), A_bf16) {gen_incl:.4f} ms, S generated by the plain hash inside "
+          f"the timing")
+    del S_bf, S_w_bf
+    rows.append(_row("gaussian_sa.bf16", src + "gaussian_sa.cu", ref_g + ":210", recs,
+                     library_with_generation_ms=gen_incl))
     # int8 leg: the codes stream, their row scales fold into the column scale
     codes, a_scales = quantize_rows(A)
+    S_a = (S * a_scales[:, None, :]).to(bf)
+    codes_bf = codes.to(bf)
+    _repeats("gaussian_sa.int8", lambda: gaussian_sa_cuda(codes, seeds, m, scale=a_scales,
+                                                          compute_dtype="int8"))
     recs = [_measure("gaussian_sa.int8",
                      lambda: gaussian_sa_cuda(codes, seeds, m, scale=a_scales,
                                               compute_dtype="int8"),
                      lambda: gaussian_sa_ref(codes, seeds, m, scale=a_scales,
                                              compute_dtype="int8"),
                      B * n * d + 4 * B * n + out_b, flops + B * m * n,
-                     GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS)]
+                     GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                     library=lambda: torch.bmm(S_a, codes_bf))]
+    del S, S_w, S_a, codes_bf
     rows.append(_row("gaussian_sa.int8", src + "gaussian_sa.cu", ref_g + ":234", recs))
 
     # SJLT at the top class under sketch="sjlt": B=16, n=4096, d=256, M=512
@@ -255,11 +332,7 @@ def phase_kernels():
         # into the signs, bf16 rounds the signs; A_in itself stays as it is
         A_s, s_s = ksj.fold_stream(A_in, sg, cd)
         kern = lambda: ksj.sjlt_launch(A_s, tgt, s_s, M, compute_dtype=cd)  # noqa: E731
-        first, again = kern(), kern()
-        torch.cuda.synchronize()
-        if not torch.equal(first, again):
-            raise SystemExit(f"chip_smoke: {name} does not repeat bitwise")
-        print(f"[kernel] {name}: two launches bitwise equal")
+        _repeats(name, kern)
         recs = [_measure(name, kern, lambda: ksj.sjlt_ref_batched(A_s, tgt, s_s, M, cd),
                          a_bytes + meta + out_b, sj_flops, tol, peak, library), *extra]
         return _row(name, src + "sjlt.cu", "src/repro/kernels/sjlt.py:140", recs)
@@ -305,12 +378,24 @@ def phase_kernels():
     X = torch.randn((B, n, d), generator=g, device=dev)
     s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
     lg = n.bit_length() - 1
+    print(f"[kernel] fwht at n={n}: {len(split_plan(n))} launch, clusters of "
+          f"{cluster_plan(n)[1]} blocks of {cluster_plan(n)[0]} rows; resident clusters "
+          f"{active_clusters(n)} (fp32 tile), "
+          f"{active_clusters(n, torch.float32, torch.bfloat16)} (bf16 tile)")
+    # yardstick for every leg: one fp32 matmul by the dense Hadamard matrix,
+    # built outside the timing (the row scale is O(n·d) beside it)
+    H = hadamard_dense(n, device=dev)
+    dense_ms = time_ms(lambda: torch.matmul(H, X), reps=5, warm=1)
+    del H
+    print(f"[kernel] fwht yardstick: torch.matmul(hadamard_dense({n}), X) fp32 "
+          f"{dense_ms:.4f} ms")
     recs = [
         _measure("fwht signs fused", lambda: ops.fwht_cols(X, row_scale=s),
                  lambda: fwht_ref(X * s[:, :, None]), 4 * (2 * B * n * d + B * n),
-                 float(B * d * n * (lg + 1)), FWHT_REL_TOL),
+                 float(B * d * n * (lg + 1)), FWHT_REL_TOL, library_ms=dense_ms),
         _measure("fwht unscaled", lambda: ops.fwht_cols(X), lambda: fwht_ref(X),
-                 4 * 2 * B * n * d, float(B * d * n * lg), FWHT_REL_TOL),
+                 4 * 2 * B * n * d, float(B * d * n * lg), FWHT_REL_TOL,
+                 library_ms=dense_ms),
     ]
     rows.append(_row("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     # bf16 leg: fp32 A in, every stage rounded to bf16, a bf16 stack out; the
@@ -320,10 +405,10 @@ def phase_kernels():
                      lambda: ops.fwht_cols(X, row_scale=s, compute_dtype="bf16"),
                      lambda: fwht_ref(X.to(bf) * s.to(bf)[:, :, None]),
                      (4 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
-                     FWHT_REL_TOL),
+                     FWHT_REL_TOL, library_ms=dense_ms),
             _measure("fwht.bf16 unscaled", lambda: ops.fwht_cols(X, compute_dtype="bf16"),
                      lambda: fwht_ref(X.to(bf)), (4 + 2) * B * n * d, float(B * d * n * lg),
-                     FWHT_REL_TOL)]
+                     FWHT_REL_TOL, library_ms=dense_ms)]
     rows.append(_row("fwht.bf16", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     # int8 leg: the codes in, their row scales fused with the signs
     codes, a_scales = quantize_rows(X)
@@ -332,7 +417,7 @@ def phase_kernels():
                      lambda: ops.fwht_cols(codes, row_scale=s8, compute_dtype="int8"),
                      lambda: fwht_ref(codes.to(bf) * s8.to(bf)[:, :, None]),
                      (1 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
-                     FWHT_REL_TOL)]
+                     FWHT_REL_TOL, library_ms=dense_ms)]
     rows.append(_row("fwht.int8", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     del X, s, codes, a_scales, s8
     torch.cuda.empty_cache()
@@ -405,12 +490,29 @@ def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
         return out
 
     svc._solve_chunk = timed_chunk
+    # sketch passes of the SRHT class: each ops.fwht_cols call is one
+    fwht_cols, fwht_calls = ops.fwht_cols, [0]
+
+    def counted_fwht(*args, **kwargs):
+        fwht_calls[0] += 1
+        return fwht_cols(*args, **kwargs)
+
+    ops.fwht_cols = counted_fwht
     ops.reset_launches()
     t0 = time.perf_counter()
-    ids = [svc.submit(A, y, nu) for A, y, nu in requests]
-    sols = svc.flush()
+    try:
+        ids = [svc.submit(A, y, nu) for A, y, nu in requests]
+        sols = svc.flush()
+    finally:
+        ops.fwht_cols = fwht_cols
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    fwht_launches = launches[ops.leg("fwht", compute_dtype)]
+    print(f"{tag} FWHT: {fwht_launches} launches over {fwht_calls[0]} sketch passes of "
+          f"the SRHT class")
+    if fwht_launches != fwht_calls[0]:
+        raise SystemExit(f"chip_smoke: the FWHT took {fwht_launches} launches for "
+                         f"{fwht_calls[0]} sketch passes; one each expected")
     print(f"{tag} {len(ids)} requests answered in {wall:.3f} s "
           f"({len(ids) / wall:.2f} req/s, first-call set-up included); "
           f"{svc.stats['batches']} batches of {svc.batch_size}, "

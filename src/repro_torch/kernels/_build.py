@@ -29,12 +29,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every launch function: argument types, by library
 SIGNATURES = {
-    "gaussian_sa": {"gaussian_sa_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
-    "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P)},
+    "gaussian_sa": {"gaussian_sa_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                    "gaussian_entry_mismatches": ()},
+    "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P),
+             "fwht_active_clusters": (_I, _I, _I)},
     "sjlt": {"sjlt_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def a_kind(dtype, round_bf16: bool) -> int | None:
@@ -57,25 +59,30 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + headers + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
+def build_all(names=tuple(SIGNATURES), defines: tuple[str, ...] = ()) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together. Returns {name: compiler output} for the
+    per source, all started together, with the preprocessor ``defines``
+    (none in the port's own builds). Returns {name: compiler output} for the
     sources compiled now (``-Xptxas=-v`` lists registers and shared memory)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -89,18 +96,22 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built library ``name`` with its launch functions' argument types
     set (every pointer and the stream as ``c_void_p``), building it first if
-    needed."""
-    lib = _loaded.get(name)
+    needed. The kernel wrappers load the plain build; ``defines`` gives a
+    separate handle to a build with those preprocessor defines (the
+    measurement builds of ``launch/anatomy.py``, whose results are wrong),
+    which nothing but its caller launches."""
+    key = (name, defines)
+    lib = _loaded.get(key)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
+        build_all((name,), defines)
+        lib = ctypes.CDLL(str(_target(name, defines)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 

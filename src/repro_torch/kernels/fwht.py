@@ -2,13 +2,17 @@
 
 Port of ``repro.kernels.fwht`` and ``repro.kernels.ref.fwht_ref``. The
 kernel (``csrc/fwht.cu``) transforms one axis of a batch viewed as
-(B, a, L, c), with an optional row scale fused into its load. A long axis
-n = f_0·f_1·… is transformed in one launch per factor of the radix split
-H_n = (H_a ⊗ I_b)(I_a ⊗ H_b), innermost factor first (``split_plan``). Each
-launch runs a contiguous block of the one-pass butterfly's stages in the
-same order, so the composition is bitwise the one-pass transform;
-``fwht_passes_ref`` runs the same plan with the plain axis transform, which
-the tests hold against ``fwht_ref``.
+(B, a, L, c), with an optional row scale fused into its load. One launch
+transforms an axis of up to ``MAX_AXIS`` = 16384 rows: a thread block
+cluster holds the whole axis of a column group, each block a slab of it
+(``cluster_plan``). A longer axis n = f_0·f_1 is transformed in one launch
+per factor of the radix split H_n = (H_a ⊗ I_b)(I_a ⊗ H_b), innermost
+factor first (``split_plan``). Each launch runs a contiguous block of the
+one-pass butterfly's stages in the same order, so the composition is
+bitwise the one-pass transform; ``fwht_passes_ref`` runs the same plan with
+the plain axis transform, and ``fwht_schedule_ref`` models how one launch
+orders its stages (register rounds in each slab, then the rounds across
+the cluster), both of which the tests hold against ``fwht_ref``.
 
 In the bf16 and int8 modes (``kernels.precision``) the input, which may be
 int8 codes, and the row scale are cast to bf16, their product is rounded to
@@ -24,17 +28,26 @@ import torch
 from . import _build
 from .precision import contract_dtype
 
-# A Hopper block may use 227 KB of shared memory; an (L × 32) tile fits for
-# L ≤ 1024 in fp32 and L ≤ 2048 in bf16 (128 KB each). Longer axes take the
-# radix split.
-SMEM_BUDGET = 232_448
-TILE_COLS = 32
+# One launch: a block holds a slab of at most 2^LG_MAX_SLAB rows × ROW_BYTES
+# of columns (8 fp32 or 16 bf16 columns), 2048 · 32 B = 64 KB, so two blocks
+# share an SM's 227 KB; a cluster of at most MAX_CLUSTER blocks (the
+# portable cluster size) pools its slabs through distributed shared memory.
+# So one launch transforms an axis of 8 · 2048 = 16384 rows, in either tile
+# dtype; longer axes take the radix split, two launches up to 16384².
+ROW_BYTES = 32
+LG_MAX_SLAB = 11
+MAX_CLUSTER = 8
+MAX_AXIS = MAX_CLUSTER << LG_MAX_SLAB   # in either tile dtype
+ROUND_BITS = 3        # butterfly stages a thread runs in registers per round
 
 
-def max_axis(itemsize: int = 4) -> int:
-    """The longest axis one launch transforms with tile elements of
-    ``itemsize`` bytes."""
-    return 1 << ((SMEM_BUDGET // (itemsize * TILE_COLS)).bit_length() - 1)
+def cluster_plan(L: int) -> tuple[int, int]:
+    """(slab rows, blocks per cluster) of one launch over an axis of L rows:
+    one block while the axis fits a slab, else full slabs."""
+    if L & (L - 1) or not 0 < L <= MAX_AXIS:
+        raise ValueError(f"axis length {L} must be a power of 2 ≤ {MAX_AXIS}")
+    cluster = max(1, L >> LG_MAX_SLAB)
+    return L // cluster, cluster
 
 
 def fwht_ref(x: torch.Tensor) -> torch.Tensor:
@@ -53,26 +66,25 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, n, d)
 
 
-def hadamard_dense(n: int) -> torch.Tensor:
-    """Dense Hadamard matrix (tiny-n ground truth)."""
-    H = torch.ones((1, 1), dtype=torch.float32)
+def hadamard_dense(n: int, device=None) -> torch.Tensor:
+    """Dense Hadamard matrix (tiny-n ground truth; the card's yardstick)."""
+    H = torch.ones((1, 1), dtype=torch.float32, device=device)
     while H.shape[0] < n:
         H = torch.cat([torch.cat([H, H], 1), torch.cat([H, -H], 1)], 0)
     return H
 
 
-def split_plan(n: int, itemsize: int = 4) -> list[int]:
-    """Factors of n, innermost first, each at most ``max_axis(itemsize)``:
-    one pass each."""
+def split_plan(n: int) -> list[int]:
+    """Factors of n, innermost first, each at most ``MAX_AXIS``: one launch
+    each."""
     if n & (n - 1):
         raise ValueError(f"n={n} must be a power of 2")
-    max_l = max_axis(itemsize)
-    if n <= max_l:
+    if n <= MAX_AXIS:
         return [n]
     lg = n.bit_length() - 1
     inner = 1 << ((lg + 1) // 2)
-    if inner > max_l:
-        raise ValueError(f"n={n} exceeds the two-pass limit {max_l ** 2}")
+    if inner > MAX_AXIS:
+        raise ValueError(f"n={n} exceeds the two-pass limit {MAX_AXIS ** 2}")
     return [inner, n // inner]
 
 
@@ -85,6 +97,43 @@ def fwht_axis_ref(x: torch.Tensor, a: int, L: int, c: int,
     if scale is not None:
         y = y * scale.reshape(B, a, L, 1)
     return fwht_ref(y).reshape(B, a * L * c)
+
+
+def _register_stages(v: torch.Tensor, R: int, dim: int) -> torch.Tensor:
+    """Stages 0..R-1 among the 2^R rows that ``dim`` indexes, lowest bit
+    first: what one thread does to its rows in registers."""
+    rows = list(v.unbind(dim))
+    for lh in range(R):
+        h = 1 << lh
+        for e in range(1 << R):
+            if not e & h:
+                u, w = rows[e], rows[e + h]
+                rows[e], rows[e + h] = u + w, u - w
+    return torch.stack(rows, dim)
+
+
+def fwht_schedule_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain model of how one kernel launch orders the stages along axis -2
+    of x (..., L, c): in each block's slab, rounds of up to ROUND_BITS
+    stages over groups of rows base + e·2^b (e < 2^R); then the top
+    log2(cluster) stages over the rows r + slab·k gathered from every block
+    of the cluster. Bitwise ``fwht_ref`` (the same adds in the same stage
+    order), in x's dtype."""
+    L, c = x.shape[-2], x.shape[-1]
+    lead = x.shape[:-2]
+    slab, cluster = cluster_plan(L)
+    lg_slab = slab.bit_length() - 1
+    b = 0
+    while True:
+        R = min(ROUND_BITS, lg_slab - b)
+        groups = x.reshape(*lead, cluster, slab >> (b + R), 1 << R, 1 << b, c)
+        x = _register_stages(groups, R, dim=-3)
+        b += R
+        if b == lg_slab:
+            break
+    x = x.reshape(*lead, cluster, slab, c)
+    x = _register_stages(x, cluster.bit_length() - 1, dim=-3)
+    return x.reshape(*lead, L, c)
 
 
 # in_kind of fwht_axis_launch, by the input's dtype
@@ -100,9 +149,7 @@ def fwht_axis_cuda(x: torch.Tensor, a: int, L: int, c: int,
     (fp32, or bf16 from an fp32, bf16 or int8 input). ``out`` may be ``x``
     (in place). ``x_batch_stride`` 0 with ``batch`` = B shares one input
     across the batch (a shared A)."""
-    max_l = max_axis(tile.itemsize)
-    if L & (L - 1) or L > max_l:
-        raise ValueError(f"axis length {L} must be a power of 2 ≤ {max_l}")
+    cluster_plan(L)   # raises unless one launch can transform L rows
     if (x.dtype not in _IN_KIND or not x.is_contiguous()
             or (tile == torch.float32 and x.dtype != torch.float32)
             or tile not in (torch.float32, torch.bfloat16)):
@@ -132,12 +179,23 @@ def fwht_axis_cuda(x: torch.Tensor, a: int, L: int, c: int,
     return out
 
 
-def pass_shapes(n: int, d: int, itemsize: int = 4) -> list[tuple[int, int, int]]:
+def active_clusters(L: int, x_dtype: torch.dtype = torch.float32,
+                    tile: torch.dtype = torch.float32) -> int:
+    """How many of a launch's clusters the card keeps resident at once, for
+    an axis of L rows (one block per cluster below 2^LG_MAX_SLAB rows)."""
+    lib = _build.load("fwht")
+    count = lib.fwht_active_clusters(L, _IN_KIND[x_dtype], int(tile == torch.bfloat16))
+    if count < 0:
+        raise RuntimeError(f"fwht: cluster occupancy query failed with cudaError_t {-count}")
+    return count
+
+
+def pass_shapes(n: int, d: int) -> list[tuple[int, int, int]]:
     """(a, L, c) of each pass over a (B, n, d) stack, innermost factor
     first: pass k transforms factor L = f_k with the factors already done
     folded into its columns."""
     shapes, done = [], 1
-    for L in split_plan(n, itemsize):
+    for L in split_plan(n):
         shapes.append((n // (L * done), L, d * done))
         done *= L
     return shapes
@@ -157,7 +215,7 @@ def fwht_passes_ref(X: torch.Tensor, row_scale: torch.Tensor | None, *,
     if row_scale is not None:
         row_scale = row_scale.to(tile)
     y = X.expand(B, n, d).reshape(B, n * d)
-    for k, (a, L, c) in enumerate(pass_shapes(n, d, tile.itemsize)):
+    for k, (a, L, c) in enumerate(pass_shapes(n, d)):
         y = fwht_axis_ref(y, a, L, c, row_scale if k == 0 else None)
     return y.reshape(B, n, d)
 
@@ -176,7 +234,7 @@ def fwht_passes_cuda(X: torch.Tensor, row_scale: torch.Tensor | None, *,
     if row_scale is not None:
         row_scale = row_scale.to(tile)
     y = None
-    shapes = pass_shapes(n, d, tile.itemsize)
+    shapes = pass_shapes(n, d)
     for k, (a, L, c) in enumerate(shapes):
         if k == 0:
             y = fwht_axis_cuda(X, a, L, c, row_scale, batch=B,

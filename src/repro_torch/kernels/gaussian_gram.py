@@ -157,6 +157,18 @@ def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
     return acc
 
 
+def entry_mismatches() -> int:
+    """On the card: over all 2^24 values of u1 and of u2, how many values of
+    the two factors of the kernel's branch-free Box–Muller
+    (``csrc/gaussian_sa.cu``), the radius sqrt(-2·log u1) and the cosine
+    cos(2π·u2), differ from the CUDA math library's logf/sqrtf and cosf; 0
+    when both are bitwise equal, and then so is every entry, their product."""
+    count = _build.load("gaussian_sa").gaussian_entry_mismatches()
+    if count < 0:
+        raise RuntimeError(f"gaussian_entry_mismatches failed with cudaError_t {-count}")
+    return count
+
+
 def gaussian_sa_cuda(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
                      scale: torch.Tensor | None = None,
                      compute_dtype: str | None = None) -> torch.Tensor:

@@ -77,6 +77,89 @@ def test_fwht_kernel_shared_input(dev):
     assert torch.equal(got, tf.fwht_ref(X[None] * s[:, :, None]))
 
 
+# (A dtype, compute_dtype) of each AKind: fp32 A, fp32 A rounded to bf16,
+# bf16 A, int8 codes
+A_KINDS = [(torch.float32, "fp32"), (torch.float32, "bf16"), (torch.bfloat16, "bf16"),
+           (torch.int8, "int8")]
+
+
+def _gaussian_inputs(dev, B, n, d, shared, a_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
+    scale = None
+    if a_dtype == torch.int8:
+        A, scale = tg.resolve_stream(A, B, None, "int8")
+        scale = scale.contiguous()
+    return A.to(a_dtype) if a_dtype != torch.int8 else A, seeds, scale
+
+
+@pytest.mark.parametrize("a_dtype,compute_dtype", A_KINDS)
+@pytest.mark.parametrize("shared", [False, True])
+def test_gaussian_sa_repeats_bitwise(dev, a_dtype, compute_dtype, shared):
+    """No atomics and a fixed order of the partial sums: two launches on the
+    same inputs are bitwise equal, in every AKind, per-problem and shared A."""
+    B, n, d, m = 4, 1000, 200, 130
+    A, seeds, scale = _gaussian_inputs(dev, B, n, d, shared, a_dtype, 5)
+    first = tg.gaussian_sa_cuda(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
+    again = tg.gaussian_sa_cuda(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("a_dtype,compute_dtype", A_KINDS)
+@pytest.mark.parametrize("B,n,d,m", [(3, 300, 9, 16), (1, 777, 130, 70), (2, 1001, 200, 65),
+                                     (1, 4096, 256, 512), (2, 33, 300, 100)])
+def test_gaussian_sa_ragged_tiles(dev, a_dtype, compute_dtype, B, n, d, m):
+    """The tiling's ragged edges against the plain version: d not a multiple
+    of 8 (nor of 4, for the fp32 tile's vector loads), m not a multiple of the
+    64-row tile, n not a multiple of the 16-column step, d over one 256-column
+    tile, and B = 1. Tolerances as in the tests above: 1e-4 of max|SA| in
+    fp32; in the reduced modes also one bf16 flip of an S entry per output
+    entry, 2^-8·max|S·scale|·max|A|."""
+    A, seeds, scale = _gaussian_inputs(dev, B, n, d, False, a_dtype, n + d + m)
+    got = tg.gaussian_sa_cuda(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
+    want = tg.gaussian_sa_ref(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
+    atol = 1e-4 * float(want.abs().max())
+    if compute_dtype != "fp32":
+        S = tg.gaussian_s_dense(seeds, m, n)
+        s_max = float((S * (1.0 if scale is None else scale[:, None, :])).abs().max())
+        atol += 2.0 ** -8 * s_max * float(A.float().abs().max())
+    torch.cuda.synchronize()
+    assert got.shape == (B, m, d)
+    assert float((got - want).abs().max()) <= atol
+
+
+def test_gaussian_entry_matches_libm_exhaustively(dev):
+    """The factors of the kernel's branch-free Box–Muller, the radius of u1
+    and the cosine of u2, are bitwise the CUDA math library's logf/sqrtf and
+    cosf on every one of the 2^24 values of u1 and of u2."""
+    assert tg.entry_mismatches() == 0
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 32768])
+def test_fwht_cluster_launches_bitwise_plain(dev, compute_dtype, n):
+    """Up to n = 16384 the transform is one launch (one cluster of up to 8
+    blocks per column group); n = 32768 is the radix split's two. Bitwise
+    the one-pass butterfly in every leg."""
+    from repro_torch.dist.compress import quantize_rows
+
+    B, d = 2, 40
+    g = torch.Generator(device=dev).manual_seed(n + len(compute_dtype))
+    X = torch.randn((B, n, d), generator=g, device=dev)
+    s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    if compute_dtype == "int8":
+        X = quantize_rows(X)[0]
+    got, launches = tf.fwht_passes_cuda(X, s, compute_dtype=compute_dtype)
+    assert launches == (1 if n <= 16384 else 2)
+    tile = torch.float32 if compute_dtype == "fp32" else torch.bfloat16
+    want = tf.fwht_ref(X.to(tile) * s.to(tile)[:, :, None])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tf.active_clusters(min(n, 16384), X.dtype, tile) > 0
+
+
 def test_engine_on_card_matches_cpu(dev):
     """The padded engine on the card (through both kernels) and on the CPU
     (through the plain versions) give the same certificates: status and
@@ -213,7 +296,7 @@ def test_fwht_reduced_legs_bitwise_plain(dev, compute_dtype, n, d):
     leg = ops.leg("fwht", compute_dtype)
     before = ops.LAUNCHES[leg]
     got = ops.fwht_cols(X, row_scale=s, compute_dtype=compute_dtype)
-    assert ops.LAUNCHES[leg] == before + len(tf.split_plan(n, 2))
+    assert ops.LAUNCHES[leg] == before + len(tf.split_plan(n))
     bf = torch.bfloat16
     want = tf.fwht_ref(X.to(bf) * s.to(bf)[:, :, None])
     torch.cuda.synchronize()

@@ -149,12 +149,13 @@ def test_fwht_matches_reference(n, d, scaled):
                                   np.asarray(jref.hadamard_dense(n)))
 
 
-@pytest.mark.parametrize("n", [2048, 1 << 14])
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16])
 @pytest.mark.parametrize("shared", [False, True])
 def test_fwht_radix_split_equals_one_pass(n, shared):
-    """The kernel's pass plan (radix split, scale fused into the first
-    pass), run with the plain axis transform, is bitwise the one-pass
-    butterfly: each pass runs a contiguous block of its stages in order."""
+    """The kernel's pass plan beyond one launch's 16384 rows (radix split,
+    scale fused into the first pass), run with the plain axis transform, is
+    bitwise the one-pass butterfly: each pass runs a contiguous block of its
+    stages in order."""
     B, d = 2, 3
     assert len(tf.split_plan(n)) == 2
     rng = np.random.default_rng(n)
@@ -169,14 +170,46 @@ def test_fwht_radix_split_equals_one_pass(n, shared):
 
 
 def test_fwht_split_plan_fits_shared_memory():
-    """Every pass's (L × 32) fp32 tile fits a Hopper block's 227 KB."""
-    for lg in range(0, 21):
-        for L in tf.split_plan(1 << lg):
-            assert L * tf.TILE_COLS * 4 <= tf.SMEM_BUDGET
+    """Every launch's axis fits one cluster: at most 8 blocks (the portable
+    cluster size), each a slab of at most 2048 rows × 32 bytes (64 KB, two
+    blocks to an SM's 227 KB). One launch up to n = 16384, two up to
+    16384², none beyond."""
+    for lg in range(0, 29):
+        plan = tf.split_plan(1 << lg)
+        assert len(plan) == (1 if lg <= 14 else 2)
+        for L in plan:
+            slab, cluster = tf.cluster_plan(L)
+            assert slab * cluster == L and cluster <= tf.MAX_CLUSTER
+            assert 2 * slab * tf.ROW_BYTES <= 232_448   # two blocks to an SM
     with pytest.raises(ValueError):
-        tf.split_plan(1 << 21)
+        tf.split_plan(1 << 29)
     with pytest.raises(ValueError):
         tf.split_plan(3000)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 64, 2048, 4096, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_schedule_bitwise_one_pass(n, dtype):
+    """The plain model of one launch's schedule (register rounds of up to 3
+    stages in each slab, then the stages across the cluster's slabs in the
+    gather order) is bitwise the one-pass butterfly in fp32 and in bf16: the
+    card's decomposition, checked on the CPU."""
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.standard_normal((2, n, 5)).astype(np.float32)).to(dtype)
+    assert torch.equal(tf.fwht_schedule_ref(x), tf.fwht_ref(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_schedule_of_radix_passes_bitwise(dtype):
+    """n = 2^15: both passes of the radix split, each run by the schedule
+    model on its (a, L, c) view, compose to the one-pass butterfly."""
+    n, d, B = 1 << 15, 2, 2
+    rng = np.random.default_rng(7)
+    X = torch.as_tensor(rng.standard_normal((B, n, d)).astype(np.float32)).to(dtype)
+    y = X.reshape(B, n * d)
+    for a, L, c in tf.pass_shapes(n, d):
+        y = tf.fwht_schedule_ref(y.reshape(B, a, L, c)).reshape(B, n * d)
+    assert torch.equal(y.reshape(B, n, d), tf.fwht_ref(X))
 
 
 def test_reduced_precision_not_ported():

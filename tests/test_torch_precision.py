@@ -155,12 +155,12 @@ def test_fwht_reduced_leg_bitwise_reference(compute_dtype, n, d, scaled):
     np.testing.assert_array_equal(got.float().numpy(), pallas)
 
 
-@pytest.mark.parametrize("n", [2048, 1 << 14])
+@pytest.mark.parametrize("n", [2048, 1 << 15])
 @pytest.mark.parametrize("compute_dtype", REDUCED)
 def test_fwht_bf16_pass_plan_bitwise_one_pass(n, compute_dtype):
-    """The bf16 pass plan (one pass of 2048, or two of 128 at n = 16384),
-    the scale fused into the first pass, is bitwise the one-pass bf16
-    butterfly of the bf16-rounded product."""
+    """The bf16 pass plan (one launch up to n = 16384, a radix split of two
+    beyond), the scale fused into the first pass, is bitwise the one-pass
+    bf16 butterfly of the bf16-rounded product."""
     B, d = 2, 3
     rng = np.random.default_rng(n)
     X = torch.as_tensor(rng.standard_normal((B, n, d)).astype(np.float32))
@@ -171,17 +171,19 @@ def test_fwht_bf16_pass_plan_bitwise_one_pass(n, compute_dtype):
     got = tf.fwht_passes_ref(X, s, compute_dtype=compute_dtype)
     want = tf.fwht_ref(X.to(torch.bfloat16) * s.to(torch.bfloat16)[:, :, None])
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
-    assert len(tf.split_plan(n, 2)) == (1 if n == 2048 else 2)
+    assert len(tf.split_plan(n)) == (1 if n <= 16384 else 2)
 
 
 def test_fwht_bf16_split_plan_fits_shared_memory():
-    """A 2-byte (L × 32) tile fits a Hopper block for L ≤ 2048; n = 16384
-    still takes two passes of 128."""
-    assert tf.max_axis(2) == 2048 and tf.max_axis(4) == 1024
-    for lg in range(0, 23):
-        for L in tf.split_plan(1 << lg, 2):
-            assert L * tf.TILE_COLS * 2 <= tf.SMEM_BUDGET
-    assert tf.split_plan(1 << 14, 2) == [128, 128]
+    """A bf16 tile fills a block's 32-byte slab rows with 16 columns: the
+    one-launch capacity, 8 blocks × 2048 rows, is the fp32 tile's, and
+    n = 16384 (the SRHT class) is one launch of one 8-block cluster."""
+    assert tf.MAX_AXIS == 16384 == tf.MAX_CLUSTER << tf.LG_MAX_SLAB
+    assert tf.ROW_BYTES // 2 == 16 and tf.ROW_BYTES // 4 == 8
+    for lg in range(0, 29):
+        for L in tf.split_plan(1 << lg):
+            assert tf.cluster_plan(L)[0] <= 1 << tf.LG_MAX_SLAB
+    assert tf.split_plan(1 << 14) == [16384] and tf.cluster_plan(16384) == (2048, 8)
 
 
 B, N, D, M_MAX = 4, 512, 32, 64
