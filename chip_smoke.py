@@ -12,11 +12,14 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    leg must have some);
 3. kernels against plain: at the main path's shapes, hold each kernel and
    each compute-dtype leg (fp32, bf16, int8) against its plain PyTorch
-   version and time both (CUDA events, warm, median), beside the least time
-   the card could take for the same work and a one-call PyTorch yardstick
-   where one exists; the Gaussian and SJLT kernels also run twice and must
+   version and time both (CUDA events, warm, median, with the wrapper's host
+   time in; the kernel's and its yardstick's also with the host's enqueue
+   hidden, ``card_ms``), beside the least time the card could take for the
+   same work and a one-call PyTorch yardstick where one exists; the Gaussian and SJLT kernels also run twice and must
    repeat bitwise, and the Gaussian kernel's Box–Muller factors must equal
-   the CUDA math library's on all 2^24 values of each uniform;
+   the CUDA math library's on all 2^24 values of each uniform; every SJLT
+   leg must also equal the plain version on the CPU bitwise, and the SJLT's
+   bucket pass must equal its CPU model (``sjlt_buckets_ref``) exactly;
 4. main path: a default ``SolverService`` on the card answers ridge
    requests of every default shape class (two full batches of the top
    Gaussian class, one of the SRHT class, and the three smaller classes);
@@ -33,7 +36,6 @@ from __future__ import annotations
 
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -93,23 +95,12 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tupl
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    import torch
+def time_ms(fn, reps: int, warm: int = 2, hide_host: bool = False) -> float:
+    """``launch/anatomy.py``'s timing: the median time of one call on the
+    card, with its host time in unless ``hide_host``."""
+    from repro_torch.launch import anatomy
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return anatomy.time_ms(fn, reps, warm, hide_host)
 
 
 def phase_device():
@@ -175,12 +166,29 @@ def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
     time, ``library_ms``, measured once for several rows)."""
     err = _compare(label, kern(), plain(), tol)
     ms, pms = time_ms(kern, reps=10), time_ms(plain, reps=3, warm=1)
+    card_ms = time_ms(kern, reps=10, hide_host=True)
     lms = library_ms if library is None else time_ms(library, reps=10)
+    lcard = None if library is None else time_ms(library, reps=10, hide_host=True)
     bms, by = bound_ms(flops, nbytes, peak)
-    print(f"[kernel] {label}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
-          + ("" if lms is None else f", library yardstick {lms:.4f} ms"))
-    return {"variant": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lms}
+    print(f"[kernel] {label}: {ms:.4f} ms ({card_ms:.4f} ms on the card alone), "
+          f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
+          + ("" if lms is None else f", library yardstick {lms:.4f} ms")
+          + ("" if lcard is None else f" ({lcard:.4f} ms on the card alone)"))
+    return {"variant": label, "max_abs_err": err, "ms": ms, "card_ms": card_ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
+            "library_card_ms": lcard}
+
+
+def signed_onehot(tgt, signs, M):
+    """The SJLT's dense (B, M, n) sketch: signs[b, i] at (b, tgt[b, i], i),
+    targets outside [0, M) dropped; the one-hot product's yardstick S."""
+    import torch
+
+    B, n = tgt.shape
+    t = torch.where((tgt >= 0) & (tgt < M), tgt.long(), M)
+    S = torch.zeros((B, M + 1, n), device=tgt.device)
+    S.scatter_(1, t[:, None, :], signs[:, None, :].float())
+    return S[:, :M].contiguous()
 
 
 def _repeats(name, fn):
@@ -197,8 +205,8 @@ def _repeats(name, fn):
 def _row(name, source, replaces, recs, **extra):
     """One entry of the kernels line: the first measurement is the row's,
     the others are its variants."""
-    head = {k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}
+    head = {k: recs[0][k] for k in ("max_abs_err", "ms", "card_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_card_ms")}
     return dict(name=name, route="cuda", source=source, replaces=replaces, **head,
                 **extra, variants=recs[1:])
 
@@ -228,6 +236,7 @@ def phase_kernels():
     rows = []
     src = "src/repro_torch/kernels/csrc/"
     ref_g = "src/repro/kernels/gaussian_gram.py"
+    ref_s = "src/repro/kernels/sjlt.py"
 
     # Gaussian sketch→SA at the top Gaussian class: B=16, n=4096, d=256, m=512
     B, n, d, m = 16, 4096, 256, 512
@@ -263,7 +272,7 @@ def phase_kernels():
                  GAUSSIAN_REL_TOL, library=lambda: torch.bmm(S, A)),
         _measure("gaussian_sa shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
                  lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * n * d + out_b, flops,
-                 GAUSSIAN_REL_TOL),
+                 GAUSSIAN_REL_TOL, library=lambda: torch.matmul(S.reshape(B * m, n), A_sh)),
         _measure("gaussian_sa scaled (row weights, Pallas row 2)",
                  lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
                  lambda: gaussian_sa_ref(A, seeds, m, scale=ws),
@@ -285,7 +294,8 @@ def phase_kernels():
         _measure("gaussian_sa.bf16 (bf16 A)",
                  lambda: gaussian_sa_cuda(A_bf, seeds, m, compute_dtype="bf16"),
                  lambda: gaussian_sa_ref(A_bf, seeds, m, compute_dtype="bf16"),
-                 2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS),
+                 2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                 library=lambda: torch.bmm(S_bf, A_bf)),
         _measure("gaussian_sa.bf16 scaled (row weights, Pallas row 2)",
                  lambda: gaussian_sa_cuda(A, seeds, m, scale=ws, compute_dtype="bf16"),
                  lambda: gaussian_sa_ref(A, seeds, m, scale=ws, compute_dtype="bf16"),
@@ -322,56 +332,58 @@ def phase_kernels():
     M = 512
     tgt = torch.randint(0, M, (B, n), generator=g, device=dev, dtype=torch.int32)
     sg = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
-    idx = (tgt.long() + M * torch.arange(B, device=dev)[:, None]).reshape(-1)
-    out_b = 4 * B * M * d
-    meta = 8 * B * n                   # int32 targets and fp32 signs
-    sj_flops = 2.0 * B * n * d
+    for t_, s_ in ((tgt, sg), (tgt[:1], sg[:1])):
+        got = ksj.sjlt_launch_buckets(A_sh, t_, s_, M)
+        want = ksj.sjlt_buckets_ref(t_.cpu(), s_.cpu(), M)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+            raise SystemExit(f"chip_smoke: the SJLT bucket pass at B = {len(t_)} differs "
+                             f"from sjlt_buckets_ref")
+        print(f"[kernel] sjlt bucket pass at B = {len(t_)}: offsets, order and order_s "
+              f"equal sjlt_buckets_ref")
+    print("[kernel] sjlt yardstick: the dense signed one-hot S (B, M, n) times A, S built "
+          "outside the timing; bf16 operands with an fp32 result")
 
-    def sjlt_row(name, A_in, cd, a_bytes, tol, peak, library=None, extra=()):
+    def sjlt_leg(label, A_in, t_, s_, cd, a_bytes, peak):
         # the stream the kernel reads: int8 quantizes A and folds the scales
         # into the signs, bf16 rounds the signs; A_in itself stays as it is
-        A_s, s_s = ksj.fold_stream(A_in, sg, cd)
-        kern = lambda: ksj.sjlt_launch(A_s, tgt, s_s, M, compute_dtype=cd)  # noqa: E731
-        _repeats(name, kern)
-        recs = [_measure(name, kern, lambda: ksj.sjlt_ref_batched(A_s, tgt, s_s, M, cd),
-                         a_bytes + meta + out_b, sj_flops, tol, peak, library), *extra]
-        return _row(name, src + "sjlt.cu", "src/repro/kernels/sjlt.py:140", recs)
+        A_s, s_s = ksj.fold_stream(A_in, s_, cd)
+        Bq = t_.shape[0]
+        kern = lambda: ksj.sjlt_launch(A_s, t_, s_s, M, compute_dtype=cd)  # noqa: E731
+        _repeats(label, kern)
+        if not torch.equal(kern().cpu(), ksj.sjlt_ref_batched(A_in.cpu(), t_.cpu(), s_.cpu(),
+                                                               M, cd)):
+            raise SystemExit(f"chip_smoke: {label} is not bitwise the plain version on the CPU")
+        print(f"[kernel] {label}: bitwise the plain version on the CPU")
+        S, A_y, kw = signed_onehot(t_, s_s, M), A_s, {}
+        if cd != "fp32":
+            S, A_y = S.to(torch.bfloat16), A_s.to(torch.bfloat16)
+            kw = {"out_dtype": torch.float32}
+        if A_y.dim() == 3:
+            library = lambda: torch.bmm(S, A_y, **kw)  # noqa: E731
+        else:
+            library = lambda: torch.mm(S.reshape(Bq * M, n), A_y, **kw).view(Bq, M, d)  # noqa: E731
+        plain = lambda: ksj.sjlt_ref_batched(A_s, t_, s_s, M, cd)  # noqa: E731
+        want = plain()
+        lerr = float((library().float() - want).abs().max()) / float(want.abs().max())
+        print(f"[kernel] {label} yardstick: rel err {lerr:.3e} against the plain version")
+        return _measure(label, kern, plain, a_bytes + 8 * Bq * n + 4 * Bq * M * d,
+                        2.0 * Bq * n * d, SJLT_REL_TOL, peak, library=library)
 
-    A_flat = A.reshape(B * n, d)
-    A_rep = A_sh.expand(B, n, d).reshape(B * n, d)   # index_add_ takes no shared A
-    shared = _measure(
-        "sjlt shared A", lambda: ksj.sjlt_launch(A_sh, tgt, sg, M),
-        lambda: ksj.sjlt_ref_batched(A_sh, tgt, sg, M), 4 * n * d + meta + out_b,
-        sj_flops, SJLT_REL_TOL,
-        library=lambda: torch.zeros((B * M, d), device=dev).index_add_(0, idx, A_rep))
-    single = _measure(   # Pallas row 5: the B = 1 shared-A case
-        "sjlt single problem (sjlt.py:72)",
-        lambda: ksj.sjlt_launch(A_sh, tgt[:1], sg[:1], M),
-        lambda: ksj.sjlt_ref(A_sh, tgt[0], sg[0], M)[None], 4 * n * d + 8 * n + 4 * M * d,
-        2.0 * n * d, SJLT_REL_TOL,
-        library=lambda: torch.zeros((M, d), device=dev).index_add_(0, idx[:n], A_sh))
-    rows.append(sjlt_row(
-        "sjlt", A, "fp32", 4 * B * n * d, SJLT_REL_TOL, PEAK_FP32_FLOPS,
-        library=lambda: torch.zeros((B * M, d), device=dev).index_add_(0, idx, A_flat),
-        extra=(shared, single)))
-    bf_extra = _measure(
-        "sjlt.bf16 (bf16 A)",
-        lambda: ksj.sjlt_launch(A_bf, tgt, sg, M, compute_dtype="bf16"),
-        lambda: ksj.sjlt_ref_batched(A_bf, tgt, sg, M, "bf16"),
-        2 * B * n * d + meta + out_b, sj_flops, SJLT_REL_TOL, PEAK_BF16_FLOPS)
-    def single_leg(cd, a_item):        # Pallas row 5 in a reduced mode
-        A_s, s_s = ksj.fold_stream(A_sh, sg[:1], cd)
-        return _measure(
-            f"sjlt.{cd} single problem (sjlt.py:72)",
-            lambda: ksj.sjlt_launch(A_s, tgt[:1], s_s, M, compute_dtype=cd),
-            lambda: ksj.sjlt_ref_batched(A_s, tgt[:1], s_s, M, cd),
-            a_item * n * d + 8 * n + 4 * M * d, 2.0 * n * d, SJLT_REL_TOL, PEAK_BF16_FLOPS)
-
-    rows.append(sjlt_row("sjlt.bf16", A, "bf16", 4 * B * n * d, SJLT_REL_TOL,
-                         PEAK_BF16_FLOPS, extra=(bf_extra, single_leg("bf16", 4))))
-    rows.append(sjlt_row("sjlt.int8", A, "int8", B * n * d, SJLT_REL_TOL,
-                         PEAK_BF16_FLOPS, extra=(single_leg("int8", 1),)))
-    del A, A_sh, A_bf, A_flat, A_rep, w, codes, a_scales
+    rows.append(_row("sjlt", src + "sjlt.cu", ref_s + ":140", [
+        sjlt_leg("sjlt", A, tgt, sg, "fp32", 4 * B * n * d, PEAK_FP32_FLOPS),
+        sjlt_leg("sjlt shared A", A_sh, tgt, sg, "fp32", 4 * n * d, PEAK_FP32_FLOPS),
+        sjlt_leg("sjlt single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "fp32",
+                 4 * n * d, PEAK_FP32_FLOPS)]))
+    rows.append(_row("sjlt.bf16", src + "sjlt.cu", ref_s + ":140", [
+        sjlt_leg("sjlt.bf16", A, tgt, sg, "bf16", 4 * B * n * d, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.bf16 (bf16 A)", A_bf, tgt, sg, "bf16", 2 * B * n * d, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.bf16 single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "bf16",
+                 4 * n * d, PEAK_BF16_FLOPS)]))
+    rows.append(_row("sjlt.int8", src + "sjlt.cu", ref_s + ":140", [
+        sjlt_leg("sjlt.int8", A, tgt, sg, "int8", B * n * d, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.int8 single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "int8",
+                 n * d, PEAK_BF16_FLOPS)]))
+    del A, A_sh, A_bf, w, codes, a_scales
 
     # FWHT at the SRHT class: B=16, n=16384, d=256, with the SRHT signs fused
     B, n, d = 16, 16384, 256

@@ -33,7 +33,7 @@ SIGNATURES = {
                     "gaussian_entry_mismatches": ()},
     "fwht": {"fwht_axis_launch": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P),
              "fwht_active_clusters": (_I, _I, _I)},
-    "sjlt": {"sjlt_launch": (_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "sjlt": {"sjlt_launch": (_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 _loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}

@@ -6,7 +6,9 @@ kernel to the plain version. ``LAUNCHES`` counts kernel launches per kernel
 and compute-dtype leg (``"sjlt"`` is the fp32 leg, ``"sjlt.bf16"`` and
 ``"sjlt.int8"`` the others): each wrapper adds one where it launches its
 kernel, and nowhere else, so a run can show that its main path went through
-every kernel leg it should have.
+every kernel leg it should have. The FWHT counts each launch of its plan; the
+SJLT counts one per sketch pass, whatever the launches inside it (its bucket
+pass and segment sum: ``sjlt.sjlt_launch``).
 """
 
 from __future__ import annotations

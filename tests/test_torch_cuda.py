@@ -231,6 +231,70 @@ def test_sjlt_kernel_matches_plain(dev, compute_dtype, shared, n, d, M):
 
 
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("B,n,d,M", [(1, 4096, 256, 512), (2, 20000, 130, 64)])
+def test_sjlt_kernel_single_problem_and_multichunk(dev, compute_dtype, shared, B, n, d, M):
+    """B = 1 at the top class's n, d and M (the segment sum takes narrow
+    column slices to fill the card) and n = 20000 (the bucket pass's
+    multi-chunk form), held as in test_sjlt_kernel_matches_plain: 1e-5 of
+    max|SA| against the plain version on the card, bitwise against the CPU,
+    and one launch count for the pass."""
+    from repro_torch.kernels import sjlt as ts
+
+    g = torch.Generator(device=dev).manual_seed(n + d + M)
+    A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
+    rows = torch.randint(-2, M + 3, (B, n), generator=g, device=dev, dtype=torch.int32)
+    signs = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    assert (ts.bucket_chunk(B, n, M) > 0) == (n > ts.CLUSTER_MAX_N)
+    before = ops.LAUNCHES[ops.leg("sjlt", compute_dtype)]
+    got = ops.sjlt_apply_batched(A, rows, signs, M, compute_dtype=compute_dtype)
+    assert ops.LAUNCHES[ops.leg("sjlt", compute_dtype)] == before + 1
+    want = ts.sjlt_ref_batched(A, rows, signs, M, compute_dtype)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    cpu = ts.sjlt_ref_batched(A.cpu(), rows.cpu(), signs.cpu(), M, compute_dtype)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", [(20000, 130), (3, 4096, 256)])
+def test_quantize_rows_matches_cpu(dev, shape):
+    """The int8 mode's quantization gives the CPU's codes and scales
+    bitwise on the card: max|row|/127 by true division (a CUDA division by a
+    Python scalar multiplies by its reciprocal, one ulp off on some rows),
+    and the codes rounded from the same scales."""
+    from repro_torch.dist.compress import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(shape[-2])
+    v = torch.randn(shape, generator=g, device=dev)
+    v[..., 7, :] = 0.0                                 # an all-zero row: scale 0
+    codes, scales = quantize_rows(v)
+    cpu_codes, cpu_scales = quantize_rows(v.cpu())
+    assert torch.equal(scales.cpu(), cpu_scales)
+    assert torch.equal(codes.cpu(), cpu_codes)
+
+
+@pytest.mark.parametrize("B,n,M", [(3, 300, 16), (1, 4096, 512), (16, 4096, 512),
+                                   (3, 2048, 1), (2, 20000, 64), (2, 3000, 5000)])
+def test_sjlt_buckets_match_model(dev, B, n, M):
+    """The bucket pass against its CPU model ``sjlt_buckets_ref``, exactly:
+    offsets, order and the gathered signs, with targets outside [0, M).
+    n = 20000 and M = 5000 (whose counts do not fit a block's shared memory)
+    take the multi-chunk form."""
+    from repro_torch.kernels import sjlt as ts
+
+    g = torch.Generator(device=dev).manual_seed(B + n + M)
+    rows = torch.randint(-2, M + 3, (B, n), generator=g, device=dev, dtype=torch.int32)
+    signs = torch.randn((B, n), generator=g, device=dev)
+    A = torch.randn((n, 8), generator=g, device=dev)
+    assert (ts.bucket_chunk(B, n, M) > 0) == (n > ts.CLUSTER_MAX_N or M == 5000)
+    got = ts.sjlt_launch_buckets(A, rows, signs, M)
+    want = ts.sjlt_buckets_ref(rows.cpu(), signs.cpu(), M)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("offsets", "order", "order_s"), got, want):
+        assert torch.equal(x.cpu(), y), name
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
 def test_sjlt_kernel_repeats_bitwise(dev, compute_dtype):
     """No atomics: two launches on the same inputs are bitwise equal, and
     the single-problem form is the batched kernel's B = 1 shared-A case."""
