@@ -29,7 +29,21 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    answer is held against an fp64 direct solve; the launch counts are set to
    0 before each run and read after it, every kernel leg must have been
    launched, and each FWHT call of the SRHT class must be one launch;
-5. summary: one ``{"kernels": [...]}`` line, then the device line last.
+5. main path under deadlines, at the top class (4096, 256, 512) and the
+   SRHT class (16384, 256, 512) with B = 16 and phase 4's traffic: (a) a
+   generous deadline (``segment_trips=8``, ``flush_deadline_s=3600``) gives
+   answers bitwise equal to the monolithic service's, x and every
+   certificate, for gaussian/fp32 (both classes) and sjlt/bf16 (top class);
+   (b) ``deadline_s=0.0`` runs exactly one 8-trip segment: unfinished slots
+   come back DEADLINE_EXCEEDED with finite x and δ̃, finished ones keep
+   their verdicts, and x is bitwise ``finalize(prepare → segment(8))``;
+   (c) an urgent request submitted after a patient backlog dispatches first,
+   and one whose deadline has passed comes back expired without a solve;
+   (d) the card's time per segment (CUDA events, medians) at 8 and 32 trips
+   a segment, and the segmented service's wall time beside the monolithic
+   one's. The launch counts are set to 0 before the phase and read after
+   it; each kernel leg it runs must have been launched;
+6. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -489,10 +503,10 @@ def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
     per_class = {}
     solve_chunk = svc._solve_chunk
 
-    def timed_chunk(cls, reqs):           # per-class wall time and launches
+    def timed_chunk(cls, reqs, **kw):     # per-class wall time and launches
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
-        out = solve_chunk(cls, reqs)
+        out = solve_chunk(cls, reqs, **kw)
         rec = per_class.setdefault(cls, {"seconds": 0.0, "requests": 0,
                                          "launches": dict.fromkeys(before, 0)})
         rec["seconds"] += time.perf_counter() - t0
@@ -585,14 +599,191 @@ def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
     return launches
 
 
+def _same_answer(a, b) -> bool:
+    """x bitwise equal and every certificate equal (a NaN δ̃ equals NaN)."""
+    import torch
+
+    dt_same = a.delta_tilde == b.delta_tilde or (a.delta_tilde != a.delta_tilde
+                                                 and b.delta_tilde != b.delta_tilde)
+    return (torch.equal(a.x, b.x) and dt_same
+            and (a.m_final, a.iters, a.doublings, a.status)
+            == (b.m_final, b.iters, b.doublings, b.status))
+
+
+def phase_deadlines(smi, seed=20):
+    """The main path under deadlines (phase 5); returns the kernel legs'
+    launch counts over its runs, which are set to 0 just before them."""
+    import torch
+
+    from repro_torch.core import adaptive_padded as ap
+    from repro_torch.core.robust import robust_padded_solve_batched
+    from repro_torch.core.status import SolveStatus
+    from repro_torch.kernels import ops
+    from repro_torch.serve.solver_service import RidgeRequest, SolverService
+
+    dev = torch.device("cuda")
+    tag = "[deadline]"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (_, top_n, top_d), (_, srht_n, srht_d) = TRAFFIC[-2], TRAFFIC[-1]
+    top = [_request(g, dev, top_n, top_d) for _ in range(16)]
+    srht = [_request(g, dev, srht_n, srht_d) for _ in range(16)]
+    ops.reset_launches()
+
+    def serve(reqs, sketch, cd, **kw):
+        svc = SolverService(sketch=sketch, compute_dtype=cd, device=dev, **kw)
+        ids = [svc.submit(A, y, nu) for A, y, nu in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = svc.flush()
+        torch.cuda.synchronize()
+        return [sols[i] for i in ids], time.perf_counter() - t0, svc
+
+    # (a) a generous deadline is bitwise the monolithic service
+    for label, reqs, sketch, cd in (("gaussian/fp32, top + SRHT class", top + srht,
+                                     "gaussian", "fp32"),
+                                    ("sjlt/bf16, top class", top, "sjlt", "bf16")):
+        mono, t_mono, _ = serve(reqs, sketch, cd)
+        seg, t_seg, svc = serve(reqs, sketch, cd, segment_trips=8, flush_deadline_s=3600.0)
+        # the same again in the other order, so neither side always runs first
+        seg2, t_seg2, _ = serve(reqs, sketch, cd, segment_trips=8, flush_deadline_s=3600.0)
+        mono2, t_mono2, _ = serve(reqs, sketch, cd)
+        bad = [i for i, (a, b, c, e) in enumerate(zip(mono, seg, seg2, mono2))
+               if not (_same_answer(a, b) and _same_answer(a, c) and _same_answer(a, e))]
+        hist = {}
+        for s in seg:
+            hist[s.status] = hist.get(s.status, 0) + 1
+        print(f"{tag} (a) {label}: {len(reqs)} answers, segmented (8 trips a segment, "
+              f"{svc.stats['segments']} segments, deadline 3600 s) vs monolithic: "
+              f"{len(reqs) - len(bad)} bitwise equal in x, δ̃, m_final, iters, doublings "
+              f"and status; statuses {hist}; wall monolithic {t_mono:.4f} / {t_mono2:.4f} s, "
+              f"segmented {t_seg:.4f} / {t_seg2:.4f} s ({smi})")
+        if bad or svc.stats["segments"] <= 0 or svc.stats["deadline_exceeded"]:
+            raise SystemExit(f"chip_smoke: the segmented service differs from the "
+                             f"monolithic one ({label}) at requests {bad[:10]}, or did not "
+                             f"segment, or expired")
+
+    # (b) deadline_s = 0.0 runs exactly one 8-trip segment
+    svc = SolverService(device=dev)
+    cls = svc.bucket_for(*top[0][0].shape)
+    q, seeds = svc._pack(cls, [RidgeRequest(i, A, y, nu) for i, (A, y, nu) in enumerate(top)])
+    kw = dict(m_max=cls.m_max, method=svc.method, max_iters=svc.max_iters, rho=svc.rho,
+              tol=svc.tol, device=dev)
+    x, s = robust_padded_solve_batched(q, seeds, deadline_s=0.0, segment_trips=8, **kw)
+    pre, st = ap.prepare_padded_solve(q, seeds, m_max=cls.m_max, tol=svc.tol, device=dev)
+    st = ap.padded_solve_segment(q, pre, st, 8, method=svc.method, max_iters=svc.max_iters,
+                                 rho=svc.rho, tol=svc.tol, device=dev)
+    x8, s8 = ap.finalize_padded_solve(pre, st, m_max=cls.m_max, device=dev)
+    done = st.done.cpu()
+    status, want = s["status"], torch.where(done, s8["status"].cpu(),
+                                            int(SolveStatus.DEADLINE_EXCEEDED))
+    not_retried = (s["retries"] == 0).to(dev)
+    ok = (s["deadline_hit"] and s["trips"] == 8 and s["segments"] == 1
+          and torch.equal(status, want) and bool(torch.isfinite(x).all())
+          and bool(torch.isfinite(s["dtilde"][~done]).all())
+          and torch.equal(x[not_retried], x8[not_retried]))
+    print(f"{tag} (b) deadline_s=0.0, segment_trips=8, top class: deadline_hit "
+          f"{s['deadline_hit']}, trips {s['trips']}, segments {s['segments']}; "
+          f"{int((~done).sum())} slots DEADLINE_EXCEEDED, {int(done.sum())} done in time; "
+          f"x finite, bitwise finalize(prepare → segment(8)) on "
+          f"{int(not_retried.sum())} unretried slots: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the tight deadline did not pause honestly after one "
+                         f"segment (statuses {status.tolist()}, expected {want.tolist()})")
+
+    # (c) earliest deadline first; a spent deadline expires without a solve
+    svc = SolverService(device=dev)
+    order = []
+    solve_chunk = svc._solve_chunk
+
+    def recorded(cls, reqs, **kw):
+        order.append((cls.n, [r.req_id for r in reqs]))
+        return solve_chunk(cls, reqs, **kw)
+
+    svc._solve_chunk = recorded
+    backlog = [svc.submit(*_request(g, dev, TRAFFIC[1][1], TRAFFIC[1][2]), deadline_s=3600.0)
+               for _ in range(32)]
+    late = svc.submit(*_request(g, dev, TRAFFIC[2][1], TRAFFIC[2][2]), deadline_s=0.0)
+    urgent = svc.submit(*_request(g, dev, TRAFFIC[0][1], TRAFFIC[0][2]), deadline_s=600.0)
+    sols = svc.flush()
+    e = sols[late]
+    ok = (order[0][1] == [urgent] and len(order) == 3
+          and all(sols[i].status in ("OK", "RETRIED") for i in backlog + [urgent])
+          and e.status == "DEADLINE_EXCEEDED" and e.iters == 0 and bool((e.x == 0).all())
+          and all(late not in ids for _, ids in order) and svc.stats["deadline_exceeded"] == 1)
+    print(f"{tag} (c) dispatch order (class n, request ids): "
+          f"{[(n, ids if len(ids) < 3 else f'{len(ids)} ids') for n, ids in order]}; the "
+          f"urgent request {urgent} first; request {late}, deadline spent, "
+          f"{e.status} with {e.iters} iterations and x = 0: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the service's EDF dispatch or chunk expiry is wrong")
+
+    # (d) the card's time per segment, and the monolithic loop's per trip
+    cap = ap.padded_trip_cap(cls.m_max, svc.max_iters)
+    seg_kw = dict(method=svc.method, max_iters=svc.max_iters, rho=svc.rho, tol=svc.tol,
+                  device=dev)
+
+    def card_ms(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), out
+
+    for k in (8, 32):
+        times = []
+        for _ in range(3):
+            pre, st = ap.prepare_padded_solve(q, seeds, m_max=cls.m_max, tol=svc.tol,
+                                              device=dev)
+            while not bool(st.done.all()) and int(st.trips) < cap:
+                t0 = int(st.trips)
+                ms, st = card_ms(lambda: ap.padded_solve_segment(
+                    q, pre, st, min(cap, t0 + k), **seg_kw))
+                if int(st.trips) - t0 == k:            # full segments only
+                    times.append(ms)
+        times.sort()
+        med = times[len(times) // 2]
+        print(f"{tag} (d) top class gaussian/fp32, {k} trips a segment: card time per "
+              f"segment median {med:.4f} ms over {len(times)} full segments "
+              f"(min {times[0]:.4f}, max {times[-1]:.4f}), {med / k:.4f} ms a trip ({smi})")
+    mono = []
+    for _ in range(3):
+        pre, st = ap.prepare_padded_solve(q, seeds, m_max=cls.m_max, tol=svc.tol, device=dev)
+        ms, st = card_ms(lambda: ap.padded_solve_segment(q, pre, st, cap, **seg_kw))
+        mono.append(ms)
+    trips = int(st.trips)
+    run = min(cap, -(-trips // ap.CHECK_TRIPS) * ap.CHECK_TRIPS)
+    med = sorted(mono)[1]
+    print(f"{tag} (d) top class gaussian/fp32, the monolithic loop: card time median "
+          f"{med:.4f} ms (min {min(mono):.4f}, max {max(mono):.4f}) for {trips} trips with a "
+          f"problem active and {run} trips run (done is read every {ap.CHECK_TRIPS}), "
+          f"{med / run:.4f} ms a trip run ({smi})")
+    launches = dict(ops.LAUNCHES)
+    missing = [leg for leg in ("gaussian_sa", "fwht", "sjlt.bf16") if launches[leg] <= 0]
+    print(f"{tag} launches over phase 5: {launches}")
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched under "
+                         "deadlines")
+    return launches
+
+
 def main() -> int:
     import torch
 
     import repro_torch  # noqa: F401  (fails when run outside the checkout)
 
-    phase_device()
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    smi = phase_device()
     phase_build()
+    lap("phases 1-2 (device, build)")
     rows = phase_kernels()
+    lap("phase 3 (kernels against plain)")
     launches = phase_main_path()
     for i, (sketch, cd) in enumerate(MODES):
         run = phase_main_path(sketch=sketch, compute_dtype=cd, traffic=MODE_TRAFFIC,
@@ -603,6 +794,11 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched on "
                          "the main path")
     print(f"[main] launches per kernel leg over the six service runs: {launches}")
+    lap("phase 4 (main path)")
+    run = phase_deadlines(smi)
+    launches = {k: launches[k] + run[k] for k in launches}
+    print(f"[main] launches per kernel leg over phases 4 and 5: {launches}")
+    lap("phase 5 (main path under deadlines)")
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

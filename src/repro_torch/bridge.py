@@ -30,7 +30,7 @@ def quadratic_from_numpy(A, b, nu, lam_diag, row_weights=None, *,
     f32 = torch.float32
     return Quadratic(
         A=_tensor(A, f32, dev), b=_tensor(b, f32, dev), nu=_tensor(nu, f32, dev),
-        lam_diag=_tensor(lam_diag, f32, dev),
+        lam_diag=_tensor(lam_diag, f32, dev), batched=True,
         row_weights=None if row_weights is None else _tensor(row_weights, f32, dev))
 
 

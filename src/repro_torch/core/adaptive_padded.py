@@ -1,13 +1,13 @@
 """The padded adaptive engine on one device: a batch of B problems, each
 with its own doubling ladder of sketch sizes, solved in one loop.
 
-Port of ``repro.core.adaptive_padded`` (single device, monolithic solve).
-The sketch is allocated at m_max once; a problem's active size m_t only
-visits the doubling ladder {1, 2, 4, …, m_max}, so the sketched Gram at
-every level is computed before the loop by the family's provider in one
-touch of A (``core.level_grams``), and every level's H_S⁻¹ is factorized up
-front (``precond.shifted_ladder_inverses``). Inside the loop a doubling is
-a gather of the precomputed inverse, and the preconditioner is one batched
+Port of ``repro.core.adaptive_padded`` (single device). The sketch is
+allocated at m_max once; a problem's active size m_t only visits the
+doubling ladder {1, 2, 4, …, m_max}, so the sketched Gram at every level is
+computed before the loop by the family's provider in one touch of A
+(``core.level_grams``), and every level's H_S⁻¹ is factorized up front
+(``precond.shifted_ladder_inverses``). Inside the loop a doubling is a
+gather of the precomputed inverse, and the preconditioner is one batched
 matvec. Per-problem level validity guards skip ladder levels whose Gram or
 factor is not finite, and every problem exits with a truthful status.
 
@@ -22,6 +22,16 @@ reference's count, and the host reads ``done.all()`` only every
 computed every trip and selected per problem by ``reject``; a problem that
 did not reject gathers the inverse it already holds, so the result is
 bitwise what the ``cond`` gives.
+
+The solve splits into public pieces, as in the reference:
+``prepare_padded_solve`` (ladder pass, factorizations, guard tables, the
+optional true Gram and the initial ``PaddedState``), ``padded_solve_segment``
+(the loop up to an integer trip limit), ``finalize_padded_solve`` (status
+lattice and certificates) and ``reprecondition_padded`` (a new ladder
+mid-solve). ``padded_adaptive_solve_batched`` is prepare → one segment to
+the trip cap → finalize, so a solve run as segments back to back
+(``core.robust.segmented_padded_solve_batched``) is bitwise the monolithic
+one: the same trips run in the same order on the same state.
 """
 
 from __future__ import annotations
@@ -41,8 +51,9 @@ from .solvers import c_alpha_rho, rho_to_rate
 from .status import SolveStatus
 
 PADDED_METHODS = ("ihs", "pcg", "polyak")
-# host check of done.all() every this many trips (the reference's
-# DEFAULT_SEGMENT_TRIPS in core/robust.py)
+# host check of done.all() every this many trips of a segment, counted
+# from the segment's start (the value of core/robust.py's
+# DEFAULT_SEGMENT_TRIPS, so a default segment checks once, at its start)
 CHECK_TRIPS = 32
 
 
@@ -363,6 +374,131 @@ def batch_seeds(seeds, B: int, device) -> torch.Tensor:
     return seeds
 
 
+def prepare_padded_solve(
+    q: Quadratic,
+    seeds,
+    *,
+    m_max: int,
+    sketch: str = "gaussian",
+    gram_hvp: bool | None = None,
+    init_level: torch.Tensor | None = None,
+    guards: bool = True,
+    compute_dtype: str = "fp32",
+    tol: float = 1e-10,
+    grams: torch.Tensor | None = None,
+    gram_full: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    device=None,
+):
+    """Everything before the loop: the one-touch ladder pass (or ``grams=``
+    (L, B, d, d) supplied), the batched factorizations and guard tables,
+    the optional true Gram (or ``gram_full=``) and the initial state, at
+    the origin or at a warm start ``x0`` (B, d). Returns
+    ``(PaddedPrecompute, PaddedState)``; the precompute is deterministic
+    given (q, seeds)."""
+    if not q.batched:
+        raise ValueError("prepare_padded_solve expects a batched Quadratic")
+    dev = resolve_device(device)
+    require_on(dev, A=q.A, b=q.b, seeds=seeds if torch.is_tensor(seeds) else None,
+               grams=grams, gram_full=gram_full, x0=x0, init_level=init_level)
+    check_fp32_matmul()
+    if q.row_weights is not None:
+        raise NotImplementedError(
+            "weighted problems are not ported yet (ROADMAP queue 1 item 6: "
+            "the weighted Gram and GLM paths)")
+    compute_dtype = canonical_compute_dtype(compute_dtype)
+    seeds = batch_seeds(seeds, q.batch, dev)
+    if grams is None:
+        grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
+                                      compute_dtype=compute_dtype)
+    pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
+        q, grams, guards=guards)
+    if gram_full is None:
+        gram_full = _gram_precompute(q, gram_hvp)
+    pre = PaddedPrecompute(
+        pinvs=pinvs, remap=remap, any_valid=any_valid,
+        gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
+        G_full=gram_full)
+    return pre, _init_padded_state(q, pre, init_level, tol, x0=x0)
+
+
+def padded_solve_segment(
+    q: Quadratic,
+    pre: PaddedPrecompute,
+    st: PaddedState,
+    trip_limit: int,
+    *,
+    method: str = "ihs",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    guards: bool = True,
+    device=None,
+) -> PaddedState:
+    """Advance the loop to ``trip_limit`` trips in total. The state carries
+    everything across the boundary, so k-trip segments back to back are
+    bitwise the monolithic loop. ``st`` is not modified."""
+    if method not in PADDED_METHODS:
+        raise ValueError(f"padded engine supports {PADDED_METHODS}, got {method!r}")
+    require_on(resolve_device(device), x=st.x)
+    return _run_segment(q, pre, st, int(trip_limit), method=method,
+                        max_iters=max_iters, rho=rho, tol=tol, guards=guards)
+
+
+def finalize_padded_solve(pre: PaddedPrecompute, st: PaddedState, *, m_max: int,
+                          device=None):
+    """(x_best, stats) from a terminal or deadline-paused state: the
+    certificates (δ̃, m_final, level) describe the best finite iterate
+    reached, which is what an honest DEADLINE_EXCEEDED answer returns."""
+    require_on(resolve_device(device), x=st.x)
+    return _finalize(pre, st, m_max=m_max)
+
+
+def reprecondition_padded(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
+                          grams: torch.Tensor, *, guards: bool = True, device=None):
+    """Rebuild the ladder from replacement level Grams (L, B, d, d) mid-solve
+    and re-anchor every unfinished problem at its current iterate: regather
+    H_S⁻¹ at its level, recompute r, r̃, p and the δ̃ anchors from the stored
+    gradient, and restart best-iterate tracking in the new metric. The true
+    Hessian is untouched. Problems already done keep their iterates and
+    verdicts bit for bit. Returns the new ``(PaddedPrecompute,
+    PaddedState)``."""
+    require_on(resolve_device(device), x=st.x, grams=grams)
+    pinvs, remap, any_valid2, gram_poisoned2, invalid2 = _ladder_tables(
+        q, grams, guards=guards)
+    # validity composes: a problem frozen by the old ladder never iterated
+    # and stays LEVEL_INVALID; one with no valid level in the new ladder
+    # freezes now at its best finite iterate
+    any_valid = pre.any_valid & any_valid2
+    pre2 = PaddedPrecompute(
+        pinvs=pinvs, remap=remap, any_valid=any_valid,
+        gram_poisoned=pre.gram_poisoned | gram_poisoned2,
+        invalid_levels=torch.maximum(pre.invalid_levels, invalid2),
+        G_full=pre.G_full)
+    active = ~st.done
+    pinv_new = _gather_pinv(pinvs, st.level)
+    res = -st.grad                                 # b − Hx at the current x
+    rt = _apply_pinv(pinv_new, res)
+    dt = 0.5 * _pdot(res, rt)
+    dt0 = 0.5 * _pdot(q.b, _apply_pinv(pinv_new, q.b))
+    aB = active[:, None]
+    st2 = st._replace(
+        pinv=torch.where(active[:, None, None], pinv_new, st.pinv),
+        r=torch.where(aB, res, st.r),
+        rt=torch.where(aB, rt, st.rt),
+        p=torch.where(aB, rt, st.p),
+        x_prev=torch.where(aB, st.x, st.x_prev),   # momentum restart
+        t_rel=torch.where(active, 0, st.t_rel),
+        x_best=torch.where(aB, st.x, st.x_best),
+        dt_best=torch.where(active, dt, st.dt_best),
+        dtilde_I=torch.where(active, dt, st.dtilde_I),
+        dtilde=torch.where(active, dt, st.dtilde),
+        dtilde0=torch.where(active, dt0, st.dtilde0),
+        done=st.done | (active & ~any_valid),
+    )
+    return pre2, st2
+
+
 def padded_adaptive_solve_batched(
     q: Quadratic,
     seeds,
@@ -384,44 +520,75 @@ def padded_adaptive_solve_batched(
 ):
     """Adaptive solve of a batch of B problems on one device.
 
-    ``q`` holds per-problem A (B, n, d) or shared A (n, d); ``seeds`` is a
-    (B,) int64 tensor of uint32 seeds (problem b's sketch depends only on
-    seeds[b]) or one seed folded per problem. Returns (x, stats): x (B, d)
-    and per-problem stats tensors (m_final, iters, doublings, δ̃ ``dtilde``,
-    ladder ``level``, ``status``, ``converged``, ``stalled``,
-    ``invalid_levels``) plus the scalar loop ``trips``.
+    ``q`` is a batched ``Quadratic`` with per-problem A (B, n, d) or shared
+    A (n, d); ``seeds`` is a (B,) int64 tensor of uint32 seeds (problem b's
+    sketch depends only on seeds[b]) or one seed folded per problem.
+    Returns (x, stats): x (B, d) and per-problem stats tensors (m_final,
+    iters, doublings, δ̃ ``dtilde``, ladder ``level``, ``status``,
+    ``converged``, ``stalled``, ``invalid_levels``) plus the scalar loop
+    ``trips``.
 
     ``grams`` / ``gram_full`` supply the λ-free level Grams (L, B, d, d) and
     the true Gram and skip the sketch pass; ``init_level`` (B,) starts each
     problem's ladder at that level; ``x0`` (B, d) warm-starts the iterate.
     ``guards`` (default on) skips ladder levels whose Gram or inverse is not
     finite and reports truthful statuses. All tensors must lie on
-    ``device`` (default cuda)."""
-    dev = resolve_device(device)
-    require_on(dev, A=q.A, b=q.b, seeds=seeds if torch.is_tensor(seeds) else None,
-               grams=grams, gram_full=gram_full, x0=x0, init_level=init_level)
-    check_fp32_matmul()
+    ``device`` (default cuda).
+
+    This is ``prepare_padded_solve`` → ``padded_solve_segment`` to the trip
+    cap → ``finalize_padded_solve``."""
+    if not q.batched:
+        raise ValueError("use padded_adaptive_solve for single problems")
     if method not in PADDED_METHODS:
         raise ValueError(f"padded engine supports {PADDED_METHODS}, got {method!r}")
-    if q.row_weights is not None:
-        raise NotImplementedError(
-            "weighted problems are not ported yet (ROADMAP queue 1 item 10: "
-            "the weighted Gram and GLM paths)")
-    compute_dtype = canonical_compute_dtype(compute_dtype)
-    seeds = batch_seeds(seeds, q.batch, dev)
-    if grams is None:
-        grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
-                                      compute_dtype=compute_dtype)
-    pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
-        q, grams, guards=guards)
-    if gram_full is None:
-        gram_full = _gram_precompute(q, gram_hvp)
-    pre = PaddedPrecompute(
-        pinvs=pinvs, remap=remap, any_valid=any_valid,
-        gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
-        G_full=gram_full)
-    init = _init_padded_state(q, pre, init_level, tol, x0=x0)
-    st = _run_segment(q, pre, init, padded_trip_cap(m_max, max_iters),
-                      method=method, max_iters=max_iters, rho=rho, tol=tol,
-                      guards=guards)
-    return _finalize(pre, st, m_max=m_max)
+    pre, st = prepare_padded_solve(
+        q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
+        init_level=init_level, guards=guards, compute_dtype=compute_dtype,
+        tol=tol, grams=grams, gram_full=gram_full, x0=x0, device=device)
+    st = padded_solve_segment(q, pre, st, padded_trip_cap(m_max, max_iters),
+                              method=method, max_iters=max_iters, rho=rho,
+                              tol=tol, guards=guards, device=device)
+    return finalize_padded_solve(pre, st, m_max=m_max, device=device)
+
+
+def padded_adaptive_solve(
+    q: Quadratic,
+    seed,
+    *,
+    m_max: int,
+    method: str = "ihs",
+    sketch: str = "gaussian",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    compute_dtype: str = "fp32",
+    device=None,
+):
+    """Adaptive solve of one problem as a batch through the padded engine.
+    A vector RHS (d,) is a B = 1 batch whose sketch seed is ``seed`` itself,
+    and gets scalar stats; a (d, c) matrix RHS is a shared-A batch over its
+    columns, with ``seed`` a (c,) tensor of per-column seeds or one seed
+    folded per column, and gets per-column stats. A batched ``q`` goes to
+    ``padded_adaptive_solve_batched``."""
+    kw = dict(m_max=m_max, method=method, sketch=sketch, max_iters=max_iters,
+              rho=rho, tol=tol, compute_dtype=compute_dtype, device=device)
+    if q.batched:
+        return padded_adaptive_solve_batched(q, seed, **kw)
+    dev = resolve_device(device)
+    matrix_rhs = q.b.dim() == 2
+    if matrix_rhs:
+        B, b = q.b.shape[1], q.b.T.contiguous()
+        seeds = batch_seeds(seed, B, dev)
+    else:
+        B, b = 1, q.b[None, :]
+        seeds = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
+    nu = torch.as_tensor(q.nu, dtype=q.b.dtype, device=dev).reshape(-1).expand(B)
+    qb = Quadratic(A=q.A, b=b, nu=nu.clone(), lam_diag=q.lam_diag.expand(B, q.d).clone(),
+                   batched=True,
+                   row_weights=None if q.row_weights is None
+                   else q.row_weights.expand(B, q.n))
+    x, stats = padded_adaptive_solve_batched(qb, seeds, **kw)
+    if matrix_rhs:
+        return x.T, stats
+    return x[0], {k: v[0] if torch.is_tensor(v) and v.dim() else v
+                  for k, v in stats.items()}

@@ -1,9 +1,8 @@
-"""Retry / fallback driver over the padded adaptive engine.
+"""Retry / fallback / deadline driver over the padded adaptive engine.
 
-Port of ``repro.core.robust.robust_padded_solve_batched`` on its
-monolithic path. The guarded engine ends every problem with a truthful
-verdict; this layer turns engine failures (STALLED / LEVEL_INVALID /
-NAN_POISONED) into finished answers:
+Port of ``repro.core.robust``. The guarded engine ends every problem with a
+truthful verdict; this layer turns engine failures (STALLED / LEVEL_INVALID
+/ NAN_POISONED) into finished answers, and bounds a solve in wall time:
 
 1. **Retry with a redrawn sketch.** Failed problems are gathered into a
    sub-batch of the SAME (B, …) shape (unused slots get b = 0 and converge
@@ -15,25 +14,55 @@ NAN_POISONED) into finished answers:
 2. **Fallback.** Problems still failed go to the dense ``direct_solve``. A
    finite answer is adopted as ``FELL_BACK`` with a NaN δ̃; a non-finite one
    keeps the engine's best finite iterate and its verdict.
+3. **Segmented execution** (``segmented_padded_solve_batched``): the same
+   solve as segments of ``segment_trips`` loop trips, the host checking the
+   wall clock between them. A segment is the monolithic loop under a trip
+   limit and the whole ``PaddedState`` crosses each boundary, so a
+   segmented solve is bitwise the monolithic one. ``deadline_s`` stops
+   dispatching once the budget is spent and finalizes the paused state:
+   unfinished problems return their best finite iterate, its real δ̃ and
+   ``DEADLINE_EXCEEDED``; problems that finished in time keep their
+   verdicts. ``on_segment`` may hand back replacement level Grams, and the
+   driver repreconditions mid-solve.
 
-The segmented driver (deadlines, checkpoints, preemption) is not ported
-yet: those arguments raise ``NotImplementedError`` (ROADMAP queue 1 item 7).
+Checkpoints and preemption (``checkpoint=``, ``preempt=``) are not ported
+yet and raise ``NotImplementedError`` (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
-from .adaptive_padded import batch_seeds, padded_adaptive_solve_batched
+from .adaptive_padded import (
+    batch_seeds,
+    doubling_ladder,
+    finalize_padded_solve,
+    padded_adaptive_solve_batched,
+    padded_solve_segment,
+    padded_trip_cap,
+    prepare_padded_solve,
+    reprecondition_padded,
+)
 from .level_grams import fold_seeds
 from .quadratic import Quadratic, direct_solve
 from .status import CONVERGED_STATUSES, ENGINE_FAILURES, SolveStatus
 
+DEFAULT_SEGMENT_TRIPS = 32
+
 _STAT_KEYS = ("status", "dtilde", "m_final", "iters", "doublings", "level",
               "invalid_levels")
+
+
+def _refuse_checkpoints(checkpoint, preempt) -> None:
+    if checkpoint is not None or preempt is not None:
+        raise NotImplementedError(
+            "checkpoints and preemption are not ported yet (ROADMAP queue 1 "
+            "item 7)")
 
 
 def _gather_quadratic(q: Quadratic, idx: torch.Tensor,
@@ -45,8 +74,94 @@ def _gather_quadratic(q: Quadratic, idx: torch.Tensor,
         b = torch.where(dead_mask[:, None], torch.zeros_like(b), b)
     return Quadratic(
         A=q.A if q.shared_A else q.A[idx], b=b, nu=q.nu[idx],
-        lam_diag=q.lam_diag[idx],
+        lam_diag=q.lam_diag[idx], batched=True,
         row_weights=None if q.row_weights is None else q.row_weights[idx])
+
+
+def segmented_padded_solve_batched(
+    q: Quadratic,
+    seeds,
+    *,
+    m_max: int,
+    method: str = "pcg",
+    sketch: str = "gaussian",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    gram_hvp: bool | None = None,
+    init_level: torch.Tensor | None = None,
+    guards: bool = True,
+    compute_dtype: str = "fp32",
+    segment_trips: int = DEFAULT_SEGMENT_TRIPS,
+    deadline_s: float | None = None,
+    checkpoint=None,
+    preempt=None,
+    on_segment=None,
+    grams: torch.Tensor | None = None,
+    gram_full: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    device=None,
+):
+    """The segmented host driver: ``prepare`` once, then run the loop
+    ``segment_trips`` trips at a time, checking the deadline between
+    segments, and ``finalize`` whatever state the loop ends in.
+
+    Same contract and return value as ``padded_adaptive_solve_batched``
+    (bitwise equal when nothing fires), plus:
+
+    * ``deadline_s`` — wall-clock budget from entry. The first segment
+      always runs; after it no segment starts past the deadline. The card
+      is synchronized after each segment, so the clock measures solve time,
+      not enqueue time. Unfinished problems are finalized with
+      ``DEADLINE_EXCEEDED``, their best finite iterate and its real δ̃.
+    * ``on_segment`` — ``fn(segment, state) -> grams | None``; replacement
+      (L, B, d, d) level Grams trigger ``reprecondition_padded``, with the
+      ladder's length of extra trips for the re-climb.
+    * ``grams`` / ``gram_full`` / ``x0`` — forwarded to ``prepare``.
+
+    Extra stats: ``segments`` (segments run), ``resumed`` (always False:
+    checkpoints are not ported) and ``deadline_hit``."""
+    _refuse_checkpoints(checkpoint, preempt)
+    if int(segment_trips) < 1:
+        raise ValueError(f"segment_trips must be at least 1, got {segment_trips}")
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    pre, st = prepare_padded_solve(
+        q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
+        init_level=init_level, guards=guards, compute_dtype=compute_dtype,
+        tol=tol, grams=grams, gram_full=gram_full, x0=x0, device=dev)
+    trip_budget = padded_trip_cap(m_max, max_iters)
+    ladder_len = len(doubling_ladder(m_max))
+    deadline_hit, seg = False, 0
+    while True:
+        trips_now = int(st.trips)
+        if bool(st.done.all()) or trips_now >= trip_budget:
+            break
+        if deadline_s is not None and seg > 0 and time.perf_counter() - t0 >= deadline_s:
+            deadline_hit = True
+            break
+        limit = min(trip_budget, trips_now + int(segment_trips))
+        st = padded_solve_segment(q, pre, st, limit, method=method,
+                                  max_iters=max_iters, rho=rho, tol=tol,
+                                  guards=guards, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seg += 1
+        if on_segment is not None:
+            new_grams = on_segment(seg, st)
+            if new_grams is not None:
+                pre, st = reprecondition_padded(q, pre, st, new_grams,
+                                                guards=guards, device=dev)
+                trip_budget += ladder_len   # re-anchored problems may re-climb
+
+    x, stats = finalize_padded_solve(pre, st, m_max=m_max, device=dev)
+    if deadline_hit:
+        # a problem that is not done has not converged: its verdict is the
+        # deadline; finished problems keep theirs bit for bit
+        status = torch.where(st.done, stats["status"], int(SolveStatus.DEADLINE_EXCEEDED))
+        stats.update(status=status, stalled=status == int(SolveStatus.STALLED))
+    stats.update(segments=seg, resumed=False, deadline_hit=deadline_hit)
+    return x, stats
 
 
 def robust_padded_solve_batched(
@@ -68,6 +183,7 @@ def robust_padded_solve_batched(
     segment_trips: int | None = None,
     checkpoint=None,
     preempt=None,
+    on_segment=None,
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
     x0: torch.Tensor | None = None,
@@ -81,28 +197,48 @@ def robust_padded_solve_batched(
     ``retries``, ``fell_back``, ``converged``, ``stalled``, and the engine
     certificates ``dtilde`` (NaN on fallen-back slots), ``m_final``,
     ``iters`` (summed over attempts), ``doublings``, ``level``,
-    ``invalid_levels``; ``trips`` sums the loop trips of all attempts.
-    ``grams`` / ``gram_full`` / ``x0`` bind to the first attempt only: a
-    retry redraws its sketch."""
-    if any(v is not None for v in (deadline_s, segment_trips, checkpoint, preempt)):
-        raise NotImplementedError(
-            "the segmented driver (deadlines, checkpoints, preemption) is not "
-            "ported yet (ROADMAP queue 1 item 7)")
+    ``invalid_levels``; ``trips`` and ``segments`` sum over all attempts,
+    and ``resumed`` / ``deadline_hit`` are the first attempt's.
+
+    Setting any of ``deadline_s``, ``segment_trips`` or ``on_segment``
+    routes attempts through ``segmented_padded_solve_batched``; with none
+    set the path, and the numbers, are the monolithic ones. ``deadline_s``
+    is a budget over the WHOLE call: the first attempt gets all of it, each
+    retry what remains, and retries and the fallback are skipped once it is
+    spent. A ``DEADLINE_EXCEEDED`` slot is never retried, and a retry that
+    itself runs out of time keeps the previous verdict. ``grams`` /
+    ``gram_full`` / ``x0`` / ``on_segment`` bind to the first attempt only:
+    a retry redraws its sketch."""
+    _refuse_checkpoints(checkpoint, preempt)
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     B = q.batch
     seeds = batch_seeds(seeds, B, dev)
+    segmented = any(v is not None for v in (deadline_s, segment_trips, on_segment))
+    seg_trips = DEFAULT_SEGMENT_TRIPS if segment_trips is None else int(segment_trips)
 
-    def solve(qq, ss, lvl, **first):
-        return padded_adaptive_solve_batched(
-            qq, ss, m_max=m_max, method=method, sketch=sketch,
-            max_iters=max_iters, rho=rho, tol=tol, gram_hvp=gram_hvp,
-            init_level=lvl, guards=True, compute_dtype=compute_dtype,
-            device=dev, **first)
+    def remaining():
+        return None if deadline_s is None else deadline_s - (time.perf_counter() - t0)
 
-    x, st_dev = solve(q, seeds, init_level, grams=grams, gram_full=gram_full, x0=x0)
+    def solve(qq, ss, lvl, *, budget=None, **first):
+        kw = dict(m_max=m_max, method=method, sketch=sketch, max_iters=max_iters,
+                  rho=rho, tol=tol, gram_hvp=gram_hvp, init_level=lvl, guards=True,
+                  compute_dtype=compute_dtype, device=dev)
+        if not segmented:
+            return padded_adaptive_solve_batched(qq, ss, **kw, **first)
+        return segmented_padded_solve_batched(qq, ss, **kw, **first,
+                                              segment_trips=seg_trips,
+                                              deadline_s=budget)
+
+    first = dict(grams=grams, gram_full=gram_full, x0=x0)
+    if on_segment is not None:
+        first["on_segment"] = on_segment
+    x, st_dev = solve(q, seeds, init_level, budget=remaining(), **first)
     x = x.clone()
     st = {k: st_dev[k].cpu().numpy().copy() for k in _STAT_KEYS}
     trips = int(st_dev["trips"])
+    segments = int(st_dev.get("segments", 0))
+    deadline_hit = bool(st_dev.get("deadline_hit", False))
 
     retries = np.zeros(B, dtype=np.int64)
     fell_back = np.zeros(B, dtype=bool)
@@ -114,6 +250,9 @@ def robust_padded_solve_batched(
         fidx = np.flatnonzero(failed)
         if fidx.size == 0:
             break
+        budget = remaining()
+        if budget is not None and budget <= 0:
+            break                       # deadline spent: the verdicts stand
         # same-shape padded gather: dead lanes repeat the first failed slot
         pad = np.full(B, fidx[0], dtype=np.int64)
         pad[: fidx.size] = fidx
@@ -122,7 +261,8 @@ def robust_padded_solve_batched(
         idx = torch.as_tensor(pad, device=dev)
         q_sub = _gather_quadratic(q, idx, torch.as_tensor(~live, device=dev))
         x_sub, s_dev = solve(q_sub, fold_seeds(seeds[idx], attempt),
-                             torch.as_tensor(st["level"][pad], device=dev))
+                             torch.as_tensor(st["level"][pad], device=dev),
+                             budget=budget)
         sub = {k: s_dev[k].cpu().numpy() for k in _STAT_KEYS}
         take_g, take_j = [], []
         for j, g in enumerate(fidx):
@@ -136,16 +276,20 @@ def robust_padded_solve_batched(
                 take_j.append(j)
                 for k in ("dtilde", "m_final", "doublings", "level", "invalid_levels"):
                     st[k][g] = sub[k][j]
-            st["status"][g] = (int(SolveStatus.RETRIED) if adopted
-                               else int(sub["status"][j]))
+            # a retry that ran out of budget keeps the previous verdict
+            if int(sub["status"][j]) != int(SolveStatus.DEADLINE_EXCEEDED):
+                st["status"][g] = (int(SolveStatus.RETRIED) if adopted
+                                   else int(sub["status"][j]))
             failed[g] = not adopted
         if take_g:
             x[torch.as_tensor(take_g, device=dev)] = x_sub[
                 torch.as_tensor(take_j, device=dev)]
         trips += int(s_dev["trips"])
+        segments += int(s_dev.get("segments", 0))
 
     fidx = np.flatnonzero(failed)
-    if fallback and fidx.size:
+    budget = remaining()
+    if fallback and fidx.size and (budget is None or budget > 0):
         g_idx = torch.as_tensor(fidx, device=dev)
         x_fb = direct_solve(_gather_quadratic(q, g_idx))
         finite = torch.isfinite(x_fb).all(-1).cpu().numpy()
@@ -163,5 +307,5 @@ def robust_padded_solve_batched(
         retries=torch.as_tensor(retries), fell_back=torch.as_tensor(fell_back),
         converged=torch.as_tensor(np.isin(st["status"], converged_codes)),
         stalled=torch.as_tensor(st["status"] == int(SolveStatus.STALLED)),
-        trips=trips)
+        trips=trips, segments=segments, resumed=False, deadline_hit=deadline_hit)
     return x, stats

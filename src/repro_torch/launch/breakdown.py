@@ -1,20 +1,27 @@
 """Where the time of one packed ridge batch goes, phase by phase, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.breakdown [--device cuda] [--reps 3] \
-        [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8]
+        [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \
+        [--segment-trips 8 32]
 
 Packs one full batch of the top class (n=4096, d=256, m_max=512), under
 ``--sketch`` (default gaussian), and one of the SRHT class (n=16384, d=256,
-m_max=512), both with the sketch pass in ``--dtype``, with the main-path traffic of ``chip_smoke.py`` (A = U·diag(0.95^i)·Vᵀ,
-ν log-uniform in [1e-3, 1e-1]), and runs the engine's pieces in order,
-synchronizing the device after each, so each phase's wall time is its own:
-pack, sketch pass (the kernel plus the prefix Grams), ladder factorization
-(Cholesky + inverses + guard tables), true-Gram precompute, the PCG loop,
-and finalize with the copy of the certificates to the host. It then times
-the whole batch through ``robust_padded_solve_batched`` and, under
-``torch.profiler``, the device's busy time over that solve, and prints one
-JSON line per class. Times are medians over ``--reps`` runs after one
-warm-up run.
+m_max=512), both with the sketch pass in ``--dtype``, with the main-path
+traffic of ``chip_smoke.py`` (A = U·diag(0.95^i)·Vᵀ, ν log-uniform in
+[1e-3, 1e-1]), and runs the engine through its public split as the
+segmented driver does, synchronizing the device after each phase, so each
+phase's wall time is its own: pack, ``prepare_padded_solve`` (sketch pass,
+ladder factorization, true Gram, initial state), each
+``padded_solve_segment`` of ``--segment-trips`` trips, and
+``finalize_padded_solve`` with the copy of the certificates to the host.
+Between two segments the host reads ``done`` and ``trips`` and starts the
+next: that host gap is reported beside the segments' times, once per
+segment length. It then times the whole batch through
+``robust_padded_solve_batched``, monolithic and segmented (a deadline of an
+hour, segments of the first ``--segment-trips``) in turns, and, under
+``torch.profiler``, the device's busy time over the monolithic solve, and
+prints one JSON line per class. Times are medians over ``--reps`` runs
+after one warm-up run.
 """
 
 from __future__ import annotations
@@ -51,8 +58,10 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _phases(svc, cls, reqs):
-    """Wall seconds of each engine phase, in order, for one packed batch."""
+def _phases(svc, cls, reqs, segment_trips):
+    """Wall seconds of pack, prepare and finalize, the list of segment
+    times and of host gaps between segments, and the trips, for one packed
+    batch run through the public split."""
     dev, sketch = svc.device, cls.sketch or svc.sketch
     cd = cls.compute_dtype or svc.compute_dtype
     times = {}
@@ -66,18 +75,28 @@ def _phases(svc, cls, reqs):
         return out
 
     q, seeds = timed("pack", lambda: svc._pack(cls, reqs))
-    grams = timed("sketch_pass", lambda: ap._compute_ladder_grams(
-        q, seeds, m_max=cls.m_max, sketch=sketch, compute_dtype=cd))
-    tables = timed("factorize", lambda: ap._ladder_tables(q, grams, guards=True))
-    G = timed("gram_precompute", lambda: ap._gram_precompute(q, None))
-    pre = ap.PaddedPrecompute(*tables, G_full=G)
-    st = timed("pcg_loop", lambda: ap._run_segment(
-        q, pre, ap._init_padded_state(q, pre, None, svc.tol),
-        ap.padded_trip_cap(cls.m_max, svc.max_iters), method=svc.method,
-        max_iters=svc.max_iters, rho=svc.rho, tol=svc.tol, guards=True))
+    pre, st = timed("prepare", lambda: ap.prepare_padded_solve(
+        q, seeds, m_max=cls.m_max, sketch=sketch, compute_dtype=cd, tol=svc.tol,
+        device=dev))
+    cap = ap.padded_trip_cap(cls.m_max, svc.max_iters)
+    segments, gaps, t_end = [], [], None
+    while True:
+        # the segmented driver's check between segments (host reads)
+        if bool(st.done.all()) or int(st.trips) >= cap:
+            break
+        t0 = time.perf_counter()
+        if t_end is not None:
+            gaps.append(t0 - t_end)
+        st = ap.padded_solve_segment(
+            q, pre, st, min(cap, int(st.trips) + segment_trips), method=svc.method,
+            max_iters=svc.max_iters, rho=svc.rho, tol=svc.tol, device=dev)
+        _sync(dev)
+        t_end = time.perf_counter()
+        segments.append(t_end - t0)
     timed("finalize_to_host", lambda: {
-        k: v.cpu() for k, v in ap._finalize(pre, st, m_max=cls.m_max)[1].items()})
-    return times, int(st.trips), q, seeds
+        k: v.cpu() for k, v in ap.finalize_padded_solve(pre, st, m_max=cls.m_max,
+                                                        device=dev)[1].items()})
+    return times, segments, gaps, int(st.trips), q, seeds
 
 
 def _device_busy_seconds(fn) -> float | None:
@@ -98,44 +117,62 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--sketch", default="gaussian", choices=PADDED_SKETCHES)
     p.add_argument("--dtype", default="fp32", choices=COMPUTE_DTYPES)
+    p.add_argument("--segment-trips", type=int, nargs="+", default=[8, 32])
     args = p.parse_args(argv)
     svc = SolverService(sketch=args.sketch, compute_dtype=args.dtype,
                         device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(2)
     classes = {c.n: c for c in svc.shape_classes}
+    med = statistics.median
     for cls, n_rng in ((classes[4096], (2049, 4096)), (classes[16384], (8193, 16384))):
         reqs = _traffic(g, dev, svc.batch_size, n_rng, (129, 256))
-        runs = [_phases(svc, cls, reqs) for _ in range(args.reps + 1)][1:]
-        phases = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
-        q, seeds = runs[0][2], runs[0][3]
+        per_k = {}
+        for k in args.segment_trips:
+            runs = [_phases(svc, cls, reqs, k) for _ in range(args.reps + 1)][1:]
+            per_k[k] = {
+                "phases_s": {name: med(r[0][name] for r in runs) for name in runs[0][0]},
+                "segments": len(runs[0][1]),
+                "segments_total_s": med(sum(r[1]) for r in runs),
+                "segment_s_median": med(t for r in runs for t in r[1]),
+                "host_gap_s_median": (med(t for r in runs for t in r[2])
+                                      if runs[0][2] else None),
+                "trips": runs[0][3],
+            }
+        q, seeds = runs[0][4], runs[0][5]
 
-        def solve():
+        def solve(**seg):
             x, stats = robust_padded_solve_batched(
                 q, seeds, m_max=cls.m_max, method=svc.method,
                 sketch=cls.sketch or svc.sketch, max_iters=svc.max_iters,
                 rho=svc.rho, tol=svc.tol, compute_dtype=svc.compute_dtype,
-                device=dev)
+                device=dev, **seg)
             _sync(dev)
             return stats
 
-        walls = []
-        for _ in range(args.reps):
-            t0 = time.perf_counter()
-            stats = solve()
-            walls.append(time.perf_counter() - t0)
+        # the monolithic and the segmented solve in turns, each first in
+        # every other round
+        k0 = args.segment_trips[0]
+        forms = [("mono", {}), ("seg", dict(deadline_s=3600.0, segment_trips=k0))]
+        solve()                                  # warm-up
+        walls = {name: [] for name, _ in forms}
+        for rep in range(args.reps):
+            for name, seg in (forms if rep % 2 == 0 else forms[::-1]):
+                t0 = time.perf_counter()
+                stats = solve(**seg)
+                walls[name].append(time.perf_counter() - t0)
+        mono_s, seg_s = med(walls["mono"]), med(walls["seg"])
         busy = _device_busy_seconds(solve) if dev.type == "cuda" else None
-        wall = statistics.median(walls)
         print(json.dumps({
             "class": list(cls[:3]) + [cls.sketch or svc.sketch],
             "compute_dtype": svc.compute_dtype,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-            "batch": svc.batch_size, "trips": runs[0][1],
-            "phases_s": phases, "solve_s": wall,
-            "requests_per_s": svc.batch_size / wall,
+            "batch": svc.batch_size, "split_by_segment_trips": per_k,
+            "solve_s": mono_s, f"segmented_solve_s_{k0}": seg_s,
+            "requests_per_s": svc.batch_size / mono_s,
             "retries": int(stats["retries"].sum()),
             "device_busy_s": busy,
-            "device_idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
+            "device_idle_share": None if busy is None else max(0.0, 1.0 - busy / mono_s),
         }))
 
 

@@ -3,14 +3,16 @@ shape-class bucketing and batched adaptive engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--deadline-s T] [--segment-trips K]
 
 Mirrors ``repro.launch.serve --ridge`` for ridge traffic only; the data is
 drawn from a seeded ``torch.Generator`` on the chosen device. ``--sketch``
 is the service's default family (the n = 16384 class keeps its SRHT) and
 ``--dtype`` the sketch pass's precision; certificates stay fp32 and record
-both. LM serving, GLM and path traffic, meshes and deadlines are not ported
-yet.
+both. ``--deadline-s`` bounds the flush: requests that run out of time
+come back DEADLINE_EXCEEDED with their best iterates, the solves running in
+segments of ``--segment-trips`` loop trips. LM serving, GLM and path
+traffic and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from repro_torch.serve.solver_service import SolverService
 
 
 def serve_ridge(args) -> dict:
-    svc = SolverService(method="pcg", sketch=args.sketch,
-                        compute_dtype=args.dtype, device=args.device)
+    svc = SolverService(method="pcg", sketch=args.sketch, compute_dtype=args.dtype,
+                        segment_trips=args.segment_trips, device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     for _ in range(args.requests):
@@ -37,7 +39,7 @@ def serve_ridge(args) -> dict:
         nu = 0.05 + 0.45 * float(torch.rand((), generator=g, device=dev))
         svc.submit(A, y, nu=nu)
     t0 = time.perf_counter()
-    sols = svc.flush()
+    sols = svc.flush(deadline_s=args.deadline_s)
     dt = time.perf_counter() - t0
     print(f"solver service on {dev} (sketch={args.sketch}, dtype={args.dtype}): "
           f"{len(sols)} requests in {dt:.2f}s "
@@ -54,7 +56,9 @@ def serve_ridge(args) -> dict:
     for s in sols.values():
         counts[s.status] = counts.get(s.status, 0) + 1
     print("statuses: " + ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
-          + f"; retries={svc.stats['retries']}, fallbacks={svc.stats['fallbacks']}")
+          + f"; retries={svc.stats['retries']}, fallbacks={svc.stats['fallbacks']}, "
+          f"deadline_exceeded={svc.stats['deadline_exceeded']}, "
+          f"segments={svc.stats['segments']}")
     return sols
 
 
@@ -72,6 +76,11 @@ def main(argv=None):
                    help="sketch-pass compute dtype: bf16 rounds the sketch "
                         "operands to bfloat16 with fp32 sums, int8 also "
                         "quantizes A per row; certificates stay fp32")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="wall-clock budget for the flush; requests that run out "
+                        "of it return DEADLINE_EXCEEDED with their best iterate")
+    p.add_argument("--segment-trips", type=int, default=32,
+                   help="loop trips per segment of a deadline-bound solve")
     serve_ridge(p.parse_args(argv))
 
 

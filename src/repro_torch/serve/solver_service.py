@@ -14,11 +14,20 @@ Port of the ridge half of ``repro.serve.solver_service``. The service
 4. **returns** per-request solutions with their certificates (δ̃, m_final,
    iterations, doublings, status).
 
+Deadlines: a request may carry its own (``submit(deadline_s=…)``) and a
+flush a budget for all of it (``flush(deadline_s=…)`` or the service's
+``flush_deadline_s``). Chunks dispatch earliest-deadline-first; a chunk
+whose budget is spent before it starts expires without a solve, and one
+that runs out mid-solve returns its unfinished requests as
+``DEADLINE_EXCEEDED`` with their best iterates, through the segmented
+driver (``segment_trips`` trips a segment).
+
 Per-slot seeds come from ``_slot_seeds``: a fold of the service seed with
 the slot id (a real slot's request id; padded slots the reserved ids
 2³²−1−slot), so a request's sketch does not depend on what it is packed
-with. GLM and path traffic, the ladder cache, sharding, deadlines and
-checkpoints are not ported yet (ROADMAP queue 1 items 7-12).
+with. Not ported yet: path traffic and the ladder cache (ROADMAP queue 1
+item 5), GLM traffic (item 6), checkpoints and preemption (item 7) and
+sharding (item 8).
 """
 
 from __future__ import annotations
@@ -108,6 +117,8 @@ class SolverService:
         strict: bool = True,
         max_retries: int = 2,
         fallback: bool = True,
+        flush_deadline_s: float | None = None,
+        segment_trips: int = 32,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -125,6 +136,10 @@ class SolverService:
         self.strict = strict
         self.max_retries = max_retries
         self.fallback = fallback
+        # the default per-flush budget, and the trips of a segment whenever
+        # a budget routes a chunk through the segmented driver
+        self.flush_deadline_s = flush_deadline_s
+        self.segment_trips = segment_trips
         self._queues: dict[ShapeClass, list[RidgeRequest]] = {
             c: [] for c in self.shape_classes}
         self._next_id = 0
@@ -132,7 +147,8 @@ class SolverService:
         self.rejection_reasons: dict[int, str] = {}
         self.stats = {"requests": 0, "batches": 0, "padded_slots": 0,
                       "solve_seconds": 0.0, "retries": 0, "fallbacks": 0,
-                      "rejected": 0}
+                      "rejected": 0, "deadline_exceeded": 0, "segments": 0,
+                      "resumed_chunks": 0}
 
     def slot_utilization(self) -> float:
         """Fraction of solved batch slots that held a real request."""
@@ -155,10 +171,13 @@ class SolverService:
         (d,)); returns its request id. Tensors are moved to the service's
         device. ν must be a positive finite float and A, y, Λ finite:
         padded coordinates carry H = ν²·I, and a NaN would poison the
-        certificates silently, so admission checks them here."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "per-request deadlines are not ported yet (ROADMAP queue 1 item 8)")
+        certificates silently, so admission checks them here.
+
+        ``deadline_s``: the request's wall-clock budget, counted from now.
+        It orders dispatch (earliest deadline first) and binds mid-solve: a
+        request that runs out of time returns its best finite iterate, its
+        real δ̃ and ``DEADLINE_EXCEEDED``; one whose budget is spent before
+        its chunk starts returns x = 0 with no certificate."""
         dev = self.device
         A = torch.as_tensor(A, dtype=torch.float32, device=dev)
         y = torch.as_tensor(y, dtype=torch.float32, device=dev)
@@ -180,8 +199,10 @@ class SolverService:
             self.rejection_reasons[rid] = reason
             self.stats["rejected"] += 1
             return rid
+        deadline = (None if deadline_s is None
+                    else time.perf_counter() + float(deadline_s))
         self._queues[cls].append(RidgeRequest(
-            req_id=rid, A=A, y=y, nu=nu, lam_diag=lam_diag))
+            req_id=rid, A=A, y=y, nu=nu, lam_diag=lam_diag, deadline=deadline))
         return rid
 
     def _validate(self, A, y, nu, lam_diag) -> tuple[float, str | None]:
@@ -240,7 +261,7 @@ class SolverService:
                 lam[i, :di] = r.lam_diag
         slot_ids = ([r.req_id for r in reqs]
                     + [0xFFFFFFFF - s for s in range(len(reqs), B)])
-        q = Quadratic(A=A, b=b, nu=nu, lam_diag=lam)
+        q = Quadratic(A=A, b=b, nu=nu, lam_diag=lam, batched=True)
         return q, self._slot_seeds(slot_ids)
 
     # -- solving -----------------------------------------------------------
@@ -248,10 +269,16 @@ class SolverService:
         """Solve everything queued; returns {req_id: solution}. Chunks go
         earliest-deadline-first (requests without a deadline last, in
         insertion order); quarantined (REJECTED) requests come back first
-        and cost no solve time."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "flush deadlines are not ported yet (ROADMAP queue 1 item 8)")
+        and cost no solve time.
+
+        ``deadline_s`` (default: the service's ``flush_deadline_s``) is a
+        budget for the whole flush. Each chunk gets the least of what is
+        left of it and of its most urgent request's budget; a chunk whose
+        budget is spent before dispatch expires, and a budget binds
+        mid-solve through the segmented driver."""
+        if deadline_s is None:
+            deadline_s = self.flush_deadline_s
+        t0 = time.perf_counter()
         out: dict[int, RidgeSolution] = dict(self._quarantined)
         self._quarantined = {}
         chunks = []
@@ -263,30 +290,62 @@ class SolverService:
                 dl = [r.deadline for r in chunk if r.deadline is not None]
                 chunks.append((min(dl) if dl else None, len(chunks), cls, chunk))
         chunks.sort(key=lambda c: (c[0] is None, c[0] or 0.0, c[1]))
-        for _, _, cls, chunk in chunks:
-            out.update(self._solve_chunk(cls, chunk))
+        for chunk_deadline, _, cls, chunk in chunks:
+            now = time.perf_counter()
+            budgets = []
+            if deadline_s is not None:
+                budgets.append(deadline_s - (now - t0))
+            if chunk_deadline is not None:
+                budgets.append(chunk_deadline - now)
+            budget = min(budgets) if budgets else None
+            if budget is not None and budget <= 0:
+                out.update(self._expire_chunk(cls, chunk))
+            else:
+                out.update(self._solve_chunk(cls, chunk, budget_s=budget))
         return out
 
-    def _solve_chunk(self, cls: ShapeClass, reqs: list[RidgeRequest]):
+    def _expire_chunk(self, cls: ShapeClass, reqs: list[RidgeRequest]):
+        """DEADLINE_EXCEEDED solutions for a chunk that was not dispatched."""
+        out = {}
+        for r in reqs:
+            out[r.req_id] = RidgeSolution(
+                req_id=r.req_id, x=torch.zeros(r.A.shape[1], device=self.device),
+                delta_tilde=float("nan"), m_final=0, iters=0, doublings=0,
+                shape_class=cls, batch_index=-1, sketch=cls.sketch or self.sketch,
+                compute_dtype=cls.compute_dtype or self.compute_dtype,
+                status=SolveStatus.DEADLINE_EXCEEDED.name, converged=False)
+            self.stats["deadline_exceeded"] += 1
+        return out
+
+    def _solve_chunk(self, cls: ShapeClass, reqs: list[RidgeRequest],
+                     budget_s: float | None = None):
         sketch = cls.sketch or self.sketch
         cd = cls.compute_dtype or self.compute_dtype
         q, seeds = self._pack(cls, reqs)
+        # a budget routes the solve through the segmented driver; without
+        # one the call, and its numbers, are the monolithic ones
+        seg = ({} if budget_s is None
+               else dict(deadline_s=budget_s, segment_trips=self.segment_trips))
         t0 = time.perf_counter()
         x, stats = robust_padded_solve_batched(
             q, seeds, m_max=cls.m_max, method=self.method, sketch=sketch,
             max_iters=self.max_iters, rho=self.rho, tol=self.tol,
             max_retries=self.max_retries, fallback=self.fallback,
-            compute_dtype=cd, device=self.device)
+            compute_dtype=cd, device=self.device, **seg)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["solve_seconds"] += time.perf_counter() - t0
         self.stats["batches"] += 1
         self.stats["padded_slots"] += self.batch_size - len(reqs)
+        self.stats["segments"] += stats["segments"]
+        self.stats["resumed_chunks"] += int(stats["resumed"])
         out = {}
         for i, r in enumerate(reqs):
             di = r.A.shape[1]
             self.stats["retries"] += int(stats["retries"][i])
             self.stats["fallbacks"] += int(stats["fell_back"][i])
+            if int(stats["status"][i]) == int(SolveStatus.DEADLINE_EXCEEDED):
+                self.stats["deadline_exceeded"] += 1
             out[r.req_id] = RidgeSolution(
                 req_id=r.req_id, x=x[i, :di],
                 delta_tilde=float(stats["dtilde"][i]),

@@ -419,3 +419,33 @@ def test_engine_modes_on_card_match_cpu(dev, sketch, compute_dtype):
     for k in ("status", "m_final"):
         assert torch.equal(out["cuda"][k], out["cpu"][k]), k
     assert int((out["cuda"]["iters"] - out["cpu"]["iters"]).abs().max()) <= 2
+
+
+@pytest.mark.parametrize("segment_trips", [8, 32])
+@pytest.mark.parametrize("method", ["ihs", "pcg", "polyak"])
+def test_segmented_bitwise_monolithic_on_card(dev, method, segment_trips):
+    """The segmented driver on the card at the top class's width (n = 4096,
+    d = 256, m_max = 512) with B = 4: x and every certificate bitwise the
+    monolithic solve's (the same trips in the same order, through the
+    Gaussian kernel)."""
+    from repro_torch.core.adaptive_padded import padded_adaptive_solve_batched
+    from repro_torch.core.quadratic import from_least_squares_batch
+    from repro_torch.core.robust import segmented_padded_solve_batched
+
+    B, n, d = 4, 4096, 256
+    g = torch.Generator(device=dev).manual_seed(1)
+    U, _ = torch.linalg.qr(torch.randn((B, n, d), generator=g, device=dev))
+    V, _ = torch.linalg.qr(torch.randn((B, d, d), generator=g, device=dev))
+    A = (U * (0.95 ** torch.arange(d, device=dev))[None, None, :]) @ V.transpose(1, 2)
+    Y = torch.randn((B, n), generator=g, device=dev)
+    q = from_least_squares_batch(A, Y, torch.tensor([0.1, 0.03, 0.01, 0.003], device=dev))
+    seeds = torch.tensor([11, 12, 13, 14], dtype=torch.int64, device=dev)
+    kw = dict(m_max=512, method=method, max_iters=200, device=dev)
+    before = ops.LAUNCHES["gaussian_sa"]
+    x_ref, s_ref = padded_adaptive_solve_batched(q, seeds, **kw)
+    x, s = segmented_padded_solve_batched(q, seeds, segment_trips=segment_trips, **kw)
+    assert ops.LAUNCHES["gaussian_sa"] == before + 2
+    assert torch.equal(x, x_ref)
+    for k in ("status", "m_final", "iters", "dtilde", "level", "doublings", "trips"):
+        assert torch.equal(s[k], s_ref[k]), k
+    assert s["segments"] == -(-int(s_ref["trips"]) // segment_trips)

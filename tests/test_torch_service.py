@@ -139,8 +139,11 @@ def test_service_stats_and_validation():
         svc.submit(torch.ones(8, 2), torch.ones(8), 0.0)
     with pytest.raises(ValueError, match="no shape class"):
         svc.bucket_for(10**6, 2)
-    with pytest.raises(NotImplementedError):
-        svc.submit(torch.ones(8, 2), torch.ones(8), 0.1, deadline_s=1.0)
     sol = svc.solve_one(torch.eye(8, 2), torch.ones(8), 0.5)
     assert sol.status == "OK" and svc.stats["batches"] == 1
     assert svc.stats["padded_slots"] == 3 and svc.slot_utilization() == 0.25
+    # a request whose deadline is spent before dispatch expires unsolved
+    rid = svc.submit(torch.ones(8, 2), torch.ones(8), 0.1, deadline_s=-1.0)
+    late = svc.flush()[rid]
+    assert late.status == "DEADLINE_EXCEEDED" and late.iters == 0
+    assert svc.stats["deadline_exceeded"] == 1 and svc.stats["batches"] == 1
