@@ -43,7 +43,22 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    a segment, and the segmented service's wall time beside the monolithic
    one's. The launch counts are set to 0 before the phase and read after
    it; each kernel leg it runs must have been launched;
-6. summary: one ``{"kernels": [...]}`` line, then the device line last.
+6. GLM and λ-path traffic on the main path: (a) logistic batches of 16
+   (``synthetic_logistic_problem``, ν uniform in [0.1, 0.5]) at the top class
+   in gaussian/fp32, gaussian/bf16 and sjlt/int8, and one SRHT-class batch in
+   srht/fp32, by sketched Newton: every answer converged, its decrement
+   within the service's ``newton_tol`` and its x within 1e-3 of an fp64 IRLS
+   answer; (b) 16 top-class ridge requests over 8 values of ν
+   (geomspace(1, 1e-2, 8)) in gaussian/fp32 and sjlt/bf16: every point
+   within the ridge gate of phase 4, one sketch pass per chunk; (c) the same
+   path traffic four times under ``ladder_cache=True``, cold, repeat, repeat
+   on one service, then cold on a new one: each repeat round hits the cache,
+   pays no sketch pass and launches no kernel, and every round answers
+   bitwise as the first did; (d) wall times per GLM batch (with its Newton steps and
+   inner solves), per path chunk (its prepare and per-point solves) and per
+   fingerprint, and the launch counts of every leg over the phase, the
+   Gaussian kernel's weighted fp32 and bf16 legs included;
+7. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -287,13 +302,14 @@ def phase_kernels():
         _measure("gaussian_sa shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
                  lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * n * d + out_b, flops,
                  GAUSSIAN_REL_TOL, library=lambda: torch.matmul(S.reshape(B * m, n), A_sh)),
-        _measure("gaussian_sa scaled (row weights, Pallas row 2)",
-                 lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
-                 lambda: gaussian_sa_ref(A, seeds, m, scale=ws),
-                 4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL,
-                 library=lambda: torch.bmm(S_w, A)),
     ]
     rows.append(_row("gaussian_sa", src + "gaussian_sa.cu", ref_g + ":210", recs))
+    recs = [_measure("gaussian_sa.weighted (row weights, Pallas row 2)",
+                     lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
+                     lambda: gaussian_sa_ref(A, seeds, m, scale=ws),
+                     4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL,
+                     library=lambda: torch.bmm(S_w, A))]
+    rows.append(_row("gaussian_sa.weighted", src + "gaussian_sa.cu", ref_g + ":234", recs))
     # bf16 leg as the service calls it: fp32 A rounded to bf16 on load; and
     # with A stored in bf16
     A_bf = A.to(bf)
@@ -310,13 +326,13 @@ def phase_kernels():
                  lambda: gaussian_sa_ref(A_bf, seeds, m, compute_dtype="bf16"),
                  2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
                  library=lambda: torch.bmm(S_bf, A_bf)),
-        _measure("gaussian_sa.bf16 scaled (row weights, Pallas row 2)",
-                 lambda: gaussian_sa_cuda(A, seeds, m, scale=ws, compute_dtype="bf16"),
-                 lambda: gaussian_sa_ref(A, seeds, m, scale=ws, compute_dtype="bf16"),
-                 4 * (B * n * d + B * n) + out_b, flops + B * m * n,
-                 GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
-                 library=lambda: torch.bmm(S_w_bf, A_bf)),
     ]
+    recs_w = [_measure("gaussian_sa.bf16.weighted (row weights, Pallas row 2)",
+                       lambda: gaussian_sa_cuda(A, seeds, m, scale=ws, compute_dtype="bf16"),
+                       lambda: gaussian_sa_ref(A, seeds, m, scale=ws, compute_dtype="bf16"),
+                       4 * (B * n * d + B * n) + out_b, flops + B * m * n,
+                       GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                       library=lambda: torch.bmm(S_w_bf, A_bf))]
     # the same bmm with S generated inside the timing by the plain hash
     gen_incl = time_ms(lambda: torch.bmm(gaussian_s_dense(seeds, m, n).to(bf), A_bf), reps=3)
     print(f"[kernel] gaussian_sa.bf16 yardstick with generation: bmm(gaussian_s_dense(...)"
@@ -325,6 +341,8 @@ def phase_kernels():
     del S_bf, S_w_bf
     rows.append(_row("gaussian_sa.bf16", src + "gaussian_sa.cu", ref_g + ":210", recs,
                      library_with_generation_ms=gen_incl))
+    rows.append(_row("gaussian_sa.bf16.weighted", src + "gaussian_sa.cu", ref_g + ":234",
+                     recs_w))
     # int8 leg: the codes stream, their row scales fold into the column scale
     codes, a_scales = quantize_rows(A)
     S_a = (S * a_scales[:, None, :]).to(bf)
@@ -767,6 +785,218 @@ def phase_deadlines(smi, seed=20):
     return launches
 
 
+# phase 6: GLM runs (sketch, compute_dtype) at the top class, then one SRHT
+# batch; path runs at the top class; the path grid
+GLM_MODES = [("gaussian", "fp32"), ("gaussian", "bf16"), ("sjlt", "int8")]
+PATH_MODES = [("gaussian", "fp32"), ("sjlt", "bf16")]
+PATH_NUS = tuple(float(v) for v in (10.0 ** (-2.0 * k / 7.0) for k in range(8)))
+# the GLM answers against the port's fp64 IRLS answer, relative
+GLM_REL_TOL = 1e-3
+
+
+def _glm_request(g, dev, n_rng, d_rng):
+    """A logistic request of phase 4's sizes: ``synthetic_logistic_problem``
+    on the card, ν uniform in [0.1, 0.5]."""
+    import torch
+
+    from repro_torch.core.objectives import synthetic_logistic_problem
+
+    n = int(torch.randint(n_rng[0], n_rng[1] + 1, (), generator=g, device=dev))
+    d = int(torch.randint(d_rng[0], d_rng[1] + 1, (), generator=g, device=dev))
+    A, y = synthetic_logistic_problem(g, n, d)
+    return A, y, 0.1 + 0.4 * float(torch.rand((), generator=g, device=dev))
+
+
+class _CardTimer:
+    """Wall time of a function's calls, the card synchronized on both sides,
+    set around ``module.name`` for the length of a ``with``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.times, self.outputs = module, name, [], []
+
+    def __enter__(self):
+        import torch
+
+        fn = self.original = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.times.append((time.perf_counter() - t0) * 1e3)
+            self.outputs.append(out)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def _summary(ms):
+    ms = sorted(ms)
+    return (f"{len(ms)} × median {ms[len(ms) // 2]:.2f} ms "
+            f"(min {ms[0]:.2f}, max {ms[-1]:.2f}), total {sum(ms):.2f} ms")
+
+
+def phase_glm_path(smi, dev="cuda", seed=30):
+    """GLM and λ-path traffic on the main path (phase 6); returns the kernel
+    legs' launch counts over its runs, which are set to 0 just before them."""
+    import torch
+
+    from repro_torch.core import newton, robust
+    from repro_torch.core.adaptive_padded import CHECK_TRIPS
+    from repro_torch.kernels import ops
+    from repro_torch.serve import solver_service as service
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (_, top_n, top_d), (_, srht_n, srht_d) = TRAFFIC[-2], TRAFFIC[-1]
+    ops.reset_launches()
+
+    # (a) logistic GLM batches of 16 by sketched Newton
+    glm_runs = [(sk, cd, [_glm_request(g, dev, top_n, top_d) for _ in range(16)])
+                for sk, cd in GLM_MODES]
+    glm_runs.append(("gaussian", "fp32",
+                     [_glm_request(g, dev, srht_n, srht_d) for _ in range(16)]))
+    for sketch, cd, reqs in glm_runs:
+        svc = service.SolverService(sketch=sketch, compute_dtype=cd, device=dev)
+        ids = [svc.submit_glm(A, y, nu) for A, y, nu in reqs]
+        before = dict(ops.LAUNCHES)
+        with _CardTimer(svc, "_solve_glm_chunk") as chunk, \
+                _CardTimer(newton, "padded_adaptive_solve_batched") as inner:
+            sols = svc.flush()
+        legs = {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] > before[k]}
+        worst, bad = 0.0, []
+        for rid, (A, y, nu) in zip(ids, reqs):
+            s = sols[rid]
+            x64 = newton.irls_reference("logistic", A.double(), y.double()[None], nu,
+                                        device=dev)[0]
+            err = float(torch.linalg.norm(s.x.double() - x64) / torch.linalg.norm(x64))
+            worst = max(worst, err)
+            if not (s.converged and s.status == "OK" and s.decrement <= svc.newton_tol
+                    and err <= GLM_REL_TOL):
+                bad.append((rid, s.status, s.decrement, err))
+        cls = sols[ids[0]].shape_class
+        steps = max(sols[i].newton_iters for i in ids)
+        print(f"[glm] {sketch if cls.sketch is None else cls.sketch}/{cd}, class n={cls.n} "
+              f"d={cls.d} m_max={cls.m_max}: {len(ids)} logistic requests, "
+              f"{sum(sols[i].converged for i in ids)} converged, Newton steps "
+              f"{min(sols[i].newton_iters for i in ids)}-{steps}, max decrement "
+              f"{max(sols[i].decrement for i in ids):.3e} (tolerance {svc.newton_tol:g}), "
+              f"m trajectory of request {ids[0]} {sols[ids[0]].m_trajectory}; max rel err "
+              f"vs fp64 IRLS {worst:.3e} (tolerance {GLM_REL_TOL:g}); launches {legs}")
+        print(f"[glm]   wall per batch {_summary(chunk.times)}; {len(inner.times)} inner "
+              f"weighted solves, {_summary(inner.times)} ({smi})")
+        if bad:
+            raise SystemExit(f"chip_smoke: GLM answers not converged or off fp64 IRLS "
+                             f"(id, status, decrement, rel err): {bad[:10]}")
+
+    # (b) λ paths, 8 points each, one sketch pass per chunk
+    top = [_request(g, dev, top_n, top_d) for _ in range(16)]
+    for sketch, cd in PATH_MODES:
+        svc = service.SolverService(sketch=sketch, compute_dtype=cd, device=dev)
+        ids = [svc.submit_path(A, y, PATH_NUS) for A, y, _ in top]
+        before = dict(ops.LAUNCHES)
+        with _CardTimer(svc, "_solve_path_chunk") as chunk, \
+                _CardTimer(robust, "prepare_path_ladder") as prep, \
+                _CardTimer(robust, "robust_padded_solve_batched") as point:
+            sols = svc.flush()
+        legs = {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] > before[k]}
+        worst, bad = 0.0, []
+        for rid, (A, y, _) in zip(ids, top):
+            s = sols[rid]
+            A64 = A.double()
+            G = A64.T @ A64
+            for pt in s.points:
+                H = G + pt.nu ** 2 * torch.eye(A.shape[1], dtype=torch.float64, device=dev)
+                x64 = torch.linalg.solve(H, A64.T @ y.double())
+                e = pt.x.double() - x64
+                err = float(torch.sqrt((e @ H @ e) / (x64 @ H @ x64)))
+                ev = torch.linalg.eigvalsh(H)
+                tol = max(SOLVE_REL_TOL,
+                          FP32_UNIT * float(ev[-1] / ev[0]) * max(pt.iters, 1) ** 0.5)
+                worst = max(worst, err / tol)
+                if pt.status not in ("OK", "RETRIED") or not err <= tol:
+                    bad.append((rid, pt.nu, pt.status, err, tol))
+            if s.sketch_passes != 1:
+                bad.append((rid, "sketch_passes", s.sketch_passes))
+        m = [tuple(p.m_final for p in sols[i].points) for i in ids[:2]]
+        print(f"[path] {sketch}/{cd}, top class: {len(ids)} requests × {len(PATH_NUS)} "
+              f"points (ν = geomspace(1, 1e-2, 8)), sketch passes per chunk "
+              f"{sorted({sols[i].sketch_passes for i in ids})}; worst H-norm rel err vs fp64 "
+              f"as a share of max({SOLVE_REL_TOL:g}, 2^-24·κ(H)·√k): {worst:.3f}; warm m "
+              f"trajectories {m}; launches {legs}")
+        print(f"[path]   wall per chunk {_summary(chunk.times)}: prepare (one sketch pass "
+              f"and true Gram) {_summary(prep.times)}; per-point robust solves "
+              f"{_summary(point.times)} ({smi})")
+        # the no-op tail: a monolithic solve reads done every CHECK_TRIPS trips
+        active = [int(out[1]["trips"]) for out in point.outputs]
+        run = [-(-t // CHECK_TRIPS) * CHECK_TRIPS for t in active]
+        tail_ms = [ms * (r - t) / r for ms, r, t in zip(point.times, run, active)]
+        print(f"[path]   trips per point with a problem active {active}, run {run} (done "
+              f"read every {CHECK_TRIPS}); the no-op tail, at each point's ms per trip run: "
+              f"{_summary(tail_ms)}, {sum(tail_ms) / sum(point.times):.3f} of the "
+              f"per-point time")
+        if bad:
+            raise SystemExit(f"chip_smoke: path points off the ridge gate or more than one "
+                             f"sketch pass: {bad[:10]}")
+
+    # (c) the ladder cache: the same path traffic again and again, in turns
+    # cold, repeat, repeat on one service, then cold on a new one
+    services = [service.SolverService(ladder_cache=True, device=dev) for _ in range(2)]
+    rounds = []
+    for svc in (services[0], services[0], services[0], services[1]):
+        ids = [svc.submit_path(A, y, PATH_NUS) for A, y, _ in top]
+        before = dict(ops.LAUNCHES)
+        with _CardTimer(svc, "_ladder_fingerprint") as fp, \
+                _CardTimer(svc, "_solve_path_chunk") as chunk:
+            sols = svc.flush()
+        rounds.append(([sols[i] for i in ids], fp.times, chunk.times[0],
+                       sum(ops.LAUNCHES[k] - before[k] for k in before)))
+    cold = rounds[0][0]
+
+    def same(sols):
+        return sum(all(torch.equal(a.x, b.x) and a.delta_tilde == b.delta_tilde
+                       and (a.m_final, a.iters, a.status) == (b.m_final, b.iters, b.status)
+                       for a, b in zip(c.points, w.points)) for c, w in zip(cold, sols))
+
+    ok = True
+    for k, (sols, _, ms, launched) in enumerate(rounds):
+        hit = k in (1, 2)
+        good = (same(sols) == len(cold) and (launched == 0 if hit else launched > 0)
+                and all(s.cache_hit == hit and s.sketch_passes == (0 if hit else 1)
+                        for s in sols))
+        ok = ok and good
+        print(f"[cache] gaussian/fp32, top class, {len(sols)} path requests, round {k + 1} "
+              f"({'repeat' if hit else 'cold'}, service {'AAAB'[k]}): chunk {ms:.2f} ms, "
+              f"cache_hit {sum(s.cache_hit for s in sols)}/{len(sols)}, sketch_passes "
+              f"{sorted({s.sketch_passes for s in sols})}, {launched} kernel launches, "
+              f"{same(sols)}/{len(cold)} answers bitwise round 1's (x, δ̃, m_final, iters, "
+              f"status at every point): {'ok' if good else 'FAIL'}")
+    stats = services[0].stats
+    fps = [t for r in rounds for t in r[1]]
+    print(f"[cache]   service A: {stats['ladder_cache_hits']} hits, "
+          f"{stats['ladder_cache_misses']} misses, {stats['sketch_passes_saved']} passes "
+          f"saved; fingerprint (SHA-1 of A's and Λ's bytes after one copy to the host) per "
+          f"request: {_summary(fps)} ({smi})")
+    if not ok:
+        raise SystemExit("chip_smoke: a ladder-cache round is not a bitwise copy of the "
+                         "cold round, or a repeat paid a sketch pass")
+
+    # (d) every kernel leg this phase runs, the weighted legs included
+    launches = dict(ops.LAUNCHES)
+    print(f"[glm/path] launches over phase 6: {launches}")
+    want = [*ops.WEIGHTED_LEGS, "sjlt.int8", "fwht", "gaussian_sa", "sjlt.bf16"]
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched by the "
+                         "GLM and path runs")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -784,12 +1014,14 @@ def main() -> int:
     lap("phases 1-2 (device, build)")
     rows = phase_kernels()
     lap("phase 3 (kernels against plain)")
+    from repro_torch.kernels import ops
+
     launches = phase_main_path()
     for i, (sketch, cd) in enumerate(MODES):
         run = phase_main_path(sketch=sketch, compute_dtype=cd, traffic=MODE_TRAFFIC,
                               seed=2 + i)
         launches = {k: launches[k] + run[k] for k in launches}
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k not in ops.WEIGHTED_LEGS]
     if missing:
         raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched on "
                          "the main path")
@@ -799,6 +1031,14 @@ def main() -> int:
     launches = {k: launches[k] + run[k] for k in launches}
     print(f"[main] launches per kernel leg over phases 4 and 5: {launches}")
     lap("phase 5 (main path under deadlines)")
+    run = phase_glm_path(smi)
+    launches = {k: launches[k] + run[k] for k in launches}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched on "
+                         "the main path")
+    print(f"[main] launches per kernel leg over phases 4, 5 and 6: {launches}")
+    lap("phase 6 (GLM and path traffic)")
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

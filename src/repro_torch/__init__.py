@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the adaptive sketching solvers (``repro``'s ridge
-serving path), for an NVIDIA H100.
+"""PyTorch/CUDA port of the adaptive sketching solvers (``repro``'s solver
+service: ridge, λ-path and GLM traffic), for an NVIDIA H100.
 
 Module names mirror the JAX package: ``repro_torch.core.adaptive_padded``
 answers to ``repro.core.adaptive_padded``. Nothing here imports JAX or the

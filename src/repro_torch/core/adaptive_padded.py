@@ -23,6 +23,13 @@ computed every trip and selected per problem by ``reject``; a problem that
 did not reject gathers the inverse it already holds, so the result is
 bitwise what the ``cond`` gives.
 
+Weighted problems (``q.row_weights``) and warm-started ladders
+(``init_level``) serve the GLM Newton driver (``core.newton``): the sketch
+pass folds W^{1/2} into its one touch of A and the true Gram is AᵀWA. The
+ladder Grams are λ-free, so ``prepare_path_ladder`` computes them once for
+a whole grid of ν, and ``padded_path_solve_batched`` solves every point off
+them (``grams=`` / ``gram_full=``), warm-starting x and the ladder level.
+
 The solve splits into public pieces, as in the reference:
 ``prepare_padded_solve`` (ladder pass, factorizations, guard tables, the
 optional true Gram and the initial ``PaddedState``), ``padded_solve_segment``
@@ -36,6 +43,7 @@ one: the same trips run in the same order on the same state.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -46,7 +54,7 @@ from repro_torch.kernels.precision import canonical_compute_dtype
 
 from .level_grams import fold_seeds, get_provider
 from .precond import shifted_ladder_inverses
-from .quadratic import Quadratic
+from .quadratic import Quadratic, weighted_gram
 from .solvers import c_alpha_rho, rho_to_rate
 from .status import SolveStatus
 
@@ -173,12 +181,17 @@ def _ladder_tables(q: Quadratic, grams: torch.Tensor, *, guards: bool):
 
 def _gram_precompute(q: Quadratic, gram_hvp: bool | None):
     """The optional true Gram behind ``gram_hvp`` (None = auto: on when
-    d ≤ min(n, 1024)): (d, d) shared or (B, d, d), or None for the
-    matrix-free hvp."""
+    d ≤ min(n, 1024)): AᵀA (d, d) shared or (B, d, d), AᵀWA (B, d, d) for a
+    weighted problem, or None for the matrix-free hvp (``q.hvp``, which
+    weights the (B, n) intermediate)."""
     if gram_hvp is None:
         gram_hvp = q.d <= min(q.n, 1024)
     if not gram_hvp:
         return None
+    if q.row_weights is not None:
+        # AᵀWA per problem (even with shared A) through the chunked Gram:
+        # never an (n, d)-sized weighted copy of A
+        return weighted_gram(q.A, q.row_weights)
     if q.shared_A:
         return q.A.T @ q.A
     return torch.bmm(q.A.transpose(1, 2), q.A)
@@ -393,19 +406,18 @@ def prepare_padded_solve(
     """Everything before the loop: the one-touch ladder pass (or ``grams=``
     (L, B, d, d) supplied), the batched factorizations and guard tables,
     the optional true Gram (or ``gram_full=``) and the initial state, at
-    the origin or at a warm start ``x0`` (B, d). Returns
-    ``(PaddedPrecompute, PaddedState)``; the precompute is deterministic
-    given (q, seeds)."""
+    the origin or at a warm start ``x0`` (B, d). A weighted problem
+    (``q.row_weights`` (B, n)) has its weights folded into the sketch pass
+    and its true Gram formed as AᵀWA by n-chunks: no (B, n, d) weighted copy
+    of A. Returns ``(PaddedPrecompute, PaddedState)``; the precompute is
+    deterministic given (q, seeds)."""
     if not q.batched:
         raise ValueError("prepare_padded_solve expects a batched Quadratic")
     dev = resolve_device(device)
     require_on(dev, A=q.A, b=q.b, seeds=seeds if torch.is_tensor(seeds) else None,
-               grams=grams, gram_full=gram_full, x0=x0, init_level=init_level)
+               row_weights=q.row_weights, grams=grams, gram_full=gram_full, x0=x0,
+               init_level=init_level)
     check_fp32_matmul()
-    if q.row_weights is not None:
-        raise NotImplementedError(
-            "weighted problems are not ported yet (ROADMAP queue 1 item 6: "
-            "the weighted Gram and GLM paths)")
     compute_dtype = canonical_compute_dtype(compute_dtype)
     seeds = batch_seeds(seeds, q.batch, dev)
     if grams is None:
@@ -549,6 +561,101 @@ def padded_adaptive_solve_batched(
                               method=method, max_iters=max_iters, rho=rho,
                               tol=tol, guards=guards, device=device)
     return finalize_padded_solve(pre, st, m_max=m_max, device=device)
+
+
+def prepare_path_ladder(
+    q: Quadratic,
+    seeds,
+    *,
+    m_max: int,
+    sketch: str = "gaussian",
+    gram_hvp: bool | None = None,
+    compute_dtype: str = "fp32",
+    device=None,
+):
+    """The λ-free precompute of a whole regularization path: the one-touch
+    ladder pass and the optional true Gram. Neither reads ν or Λ (the ν²Λ
+    shift enters only at factorization), so the returned ``(grams,
+    gram_full)`` serves every ν of a grid through ``grams=`` /
+    ``gram_full=``; it is also the unit the service's ladder cache stores.
+    ``gram_full`` is None when the hvp stays matrix-free."""
+    if not q.batched:
+        raise ValueError("prepare_path_ladder expects a batched Quadratic")
+    dev = resolve_device(device)
+    require_on(dev, A=q.A, seeds=seeds if torch.is_tensor(seeds) else None,
+               row_weights=q.row_weights)
+    check_fp32_matmul()
+    seeds = batch_seeds(seeds, q.batch, dev)
+    grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
+                                  compute_dtype=canonical_compute_dtype(compute_dtype))
+    return grams, _gram_precompute(q, gram_hvp)
+
+
+def path_nus(nus, B: int, dtype, device) -> torch.Tensor:
+    """A λ grid as (P, B): a (P,) grid is shared by every problem."""
+    nus = torch.as_tensor(nus, dtype=dtype, device=device)
+    if nus.dim() == 1:
+        nus = nus[:, None].expand(nus.shape[0], B)
+    if nus.dim() != 2 or nus.shape[1] != B:
+        raise ValueError(f"nus must be (P,) or (P, {B}), got {tuple(nus.shape)}")
+    return nus
+
+
+def padded_path_solve_batched(
+    q: Quadratic,
+    seeds,
+    nus,
+    *,
+    m_max: int,
+    method: str = "ihs",
+    sketch: str = "gaussian",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    gram_hvp: bool | None = None,
+    init_level: torch.Tensor | None = None,
+    guards: bool = True,
+    compute_dtype: str = "fp32",
+    warm_start: bool = True,
+    device=None,
+):
+    """A regularization path: the whole ν grid off ONE sketch pass.
+
+    ``q`` is a batched Quadratic whose own ν is ignored; ``nus`` is the grid,
+    (P,) shared by the batch or (P, B) per problem. The ladder Grams and the
+    true Gram come from ``prepare_path_ladder`` once; each point pays only
+    its ν²Λ-shifted factorizations and its solve, through
+    ``padded_adaptive_solve_batched`` with ``grams=`` / ``gram_full=``, so a
+    point is bitwise a single-ν solve handed the same ladder, warm start and
+    init level. ``warm_start`` (default on) starts point p+1 at point p's x
+    and final ladder level; ``init_level`` seeds the first point.
+
+    Returns ``(xs, stats)``: xs (P, B, d), the per-point stats stacked to
+    (P, B) (``trips`` to (P,)), and ``sketch_passes`` = 1."""
+    if not q.batched:
+        raise ValueError("padded_path_solve_batched expects a batched Quadratic")
+    dev = resolve_device(device)
+    nus = path_nus(nus, q.batch, q.b.dtype, dev)
+    seeds = batch_seeds(seeds, q.batch, dev)
+    grams, gram_full = prepare_path_ladder(
+        q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
+        compute_dtype=compute_dtype, device=dev)
+    xs, per_point = [], []
+    x_prev, lvl = None, init_level
+    for p in range(nus.shape[0]):
+        q_p = dataclasses.replace(q, nu=nus[p])
+        x, stats = padded_adaptive_solve_batched(
+            q_p, seeds, m_max=m_max, method=method, sketch=sketch,
+            max_iters=max_iters, rho=rho, tol=tol, gram_hvp=gram_hvp,
+            init_level=lvl, guards=guards, compute_dtype=compute_dtype,
+            grams=grams, gram_full=gram_full, x0=x_prev, device=dev)
+        xs.append(x)
+        per_point.append(stats)
+        if warm_start:
+            x_prev, lvl = x, stats["level"]
+    out = {k: torch.stack([s[k] for s in per_point]) for k in per_point[0]}
+    out["sketch_passes"] = 1
+    return torch.stack(xs), out
 
 
 def padded_adaptive_solve(

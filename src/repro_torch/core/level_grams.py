@@ -2,7 +2,11 @@
 
 Port of ``repro.core.level_grams`` for the families of the serving path.
 Each provider turns per-problem randomness into the (L, B, d, d) Grams
-(S_m A)ᵀ(S_m A) at every doubling-ladder level m, touching A exactly once.
+(S_m W^{1/2}A)ᵀ(S_m W^{1/2}A) at every doubling-ladder level m, touching A
+exactly once. Row weights W (``row_weights=`` (B, n), overriding
+``q.row_weights``; W = I when both are None) fold into the scale slot each
+family already owns (the Gaussian column scale, the SJLT signs, the FWHT's
+row scale), so no weighted copy of A is ever made.
 The Grams are λ-free: the ν²Λ shift enters only at factorization
 (``precond.shifted_ladder_inverses``).
 
@@ -38,11 +42,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.gaussian_gram import (
-    _M32,
-    _mix,
-    counter_hash,
+from repro_torch.kernels.gaussian_gram import (  # noqa: F401 (fold_seeds: re-exported)
+    fold_seeds,
     gaussian_s_dense,
+    hash_signs,
+    hash_stream,
     resolve_stream,
 )
 # COMPUTE_DTYPES is re-exported for the launchers, as in the reference
@@ -54,15 +58,6 @@ from repro_torch.kernels.precision import (  # noqa: F401
 )
 
 from .quadratic import Quadratic
-
-
-def fold_seeds(seeds: torch.Tensor, tag) -> torch.Tensor:
-    """A new uint32 seed per problem from (seed, tag): mix(mix(seed) + mix(tag)).
-    For a fixed tag it is a bijection of the seed. ``tag`` is an int or a
-    tensor broadcasting against ``seeds``. The robust driver folds in the
-    retry attempt, the service its slot ids, the SRHT its two streams."""
-    tag = torch.as_tensor(tag, dtype=torch.int64, device=seeds.device) & _M32
-    return _mix((_mix(seeds & _M32) + _mix(tag)) & _M32)
 
 
 def prefix_level_grams(R: torch.Tensor, ladder: tuple[int, ...], *,
@@ -83,6 +78,12 @@ def prefix_level_grams(R: torch.Tensor, ladder: tuple[int, ...], *,
     return torch.stack(grams)
 
 
+def _weights(q: Quadratic, row_weights):
+    """The pass's row weights: ``row_weights`` (B, n) overrides
+    ``q.row_weights``; None for W = I."""
+    return q.row_weights if row_weights is None else row_weights
+
+
 class GaussianStreamedProvider:
     """Streaming fused sketch→Gram (the default ``gaussian`` family)."""
 
@@ -91,8 +92,12 @@ class GaussianStreamedProvider:
     def sample(self, seeds, m_max, n):
         return {"seeds": seeds}
 
-    def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
+    def level_grams(self, data, q: Quadratic, ladder, row_weights=None,
+                    compute_dtype=None):
+        # w^{1/2} scales the generated S's columns inside the kernel
+        # (Pallas row 2): no weighted copy of A
         SA = ops.gaussian_sa(q.A, data["seeds"], ladder[-1],
+                             row_weights=_weights(q, row_weights),
                              compute_dtype=compute_dtype)
         return prefix_level_grams(SA, ladder, inv_m_scale=True)
 
@@ -105,10 +110,13 @@ class GaussianDenseProvider:
     def sample(self, seeds, m_max, n):
         return {"seeds": seeds}
 
-    def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
-        # the streamed provider's scale algebra, on the materialized S
+    def level_grams(self, data, q: Quadratic, ladder, row_weights=None,
+                    compute_dtype=None):
+        # the streamed provider's scale algebra (w^{1/2} and the int8
+        # scales in one column scale), on the materialized S
         seeds = data["seeds"]
-        A, scale = resolve_stream(q.A, seeds.shape[0], None, compute_dtype)
+        A, scale = resolve_stream(q.A, seeds.shape[0], _weights(q, row_weights),
+                                  compute_dtype)
         S = gaussian_s_dense(seeds, ladder[-1], q.n)
         if scale is not None:
             S = S * scale[:, None, :]
@@ -121,18 +129,6 @@ def _n_pad(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _hash_stream(seeds: torch.Tensor, tag: int, length: int) -> torch.Tensor:
-    """(B, length) uint32 words (int64 carrier) of stream ``tag`` of each
-    problem's seed."""
-    ctr = torch.arange(length, dtype=torch.int64, device=seeds.device)
-    return counter_hash(fold_seeds(seeds, tag), ctr)
-
-
-def _signs(h: torch.Tensor) -> torch.Tensor:
-    """±1 fp32 from the top bit of each hash word."""
-    return 1.0 - 2.0 * (h >> 31).to(torch.float32)
-
-
 class SJLTProvider:
     """s = 1 SJLT ladder: one kernel pass at the top power of two, folds below."""
 
@@ -140,15 +136,17 @@ class SJLTProvider:
 
     def sample(self, seeds, m_max, n):
         # u = (h >> 8)·2^-24: uniform on the 2^24 fp32 grid points of [0, 1)
-        u = (_hash_stream(seeds, 0, n) >> 8).to(torch.float32) * (1.0 / 16777216.0)
-        return {"u": u, "signs": _signs(_hash_stream(seeds, 1, n))}
+        u = (hash_stream(seeds, 0, n) >> 8).to(torch.float32) * (1.0 / 16777216.0)
+        return {"u": u, "signs": hash_signs(hash_stream(seeds, 1, n))}
 
-    def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
+    def level_grams(self, data, q: Quadratic, ladder, row_weights=None,
+                    compute_dtype=None):
         u, signs = data["u"], data["signs"]
         m_max = ladder[-1]
         M = _n_pad(m_max)                              # top pow2 ≥ m_max
         rows = torch.clamp(torch.floor(u * float(M)), 0, M - 1).to(torch.int32)
         SA = ops.sjlt_apply_batched(q.A, rows, signs, M,        # the ONE touch
+                                    row_weights=_weights(q, row_weights),
                                     compute_dtype=compute_dtype)
         by_m = {M: SA}
         m = M
@@ -166,21 +164,31 @@ class SJLTProvider:
 
 
 class SRHTProvider:
-    """SRHT ladder: one FWHT pass, level m = first m of a fixed row stream."""
+    """SRHT ladder: one FWHT pass, level m = first m of a fixed row stream.
+
+    Rows are drawn i.i.d. uniform over the padded index space WITH
+    replacement, so every prefix of the stream is a valid m-row sample for
+    every ladder level. ``kernels.ops.srht_sketch`` (the fixed-size sketch)
+    samples WITHOUT replacement instead, the classical SRHT; both are
+    unbiased (E[SᵀS] = I) and agree where m ≪ n_pad."""
 
     name = "srht"
 
     def sample(self, seeds, m_max, n):
         # n_pad is a power of two, so the low bits are an unbiased draw
-        return {"signs": _signs(_hash_stream(seeds, 0, n)),
-                "rows": _hash_stream(seeds, 1, m_max) & (_n_pad(n) - 1)}
+        return {"signs": hash_signs(hash_stream(seeds, 0, n)),
+                "rows": hash_stream(seeds, 1, m_max) & (_n_pad(n) - 1)}
 
-    def level_grams(self, data, q: Quadratic, ladder, compute_dtype=None):
+    def level_grams(self, data, q: Quadratic, ladder, row_weights=None,
+                    compute_dtype=None):
         signs, rows = data["signs"], data["rows"]
         B = signs.shape[0]
         n, d = q.n, q.d
         n_pad = _n_pad(n)
-        X, scale = q.A, signs
+        w = _weights(q, row_weights)
+        # signs (and w^{1/2}) fold into the FWHT's one fused row scale
+        scale = signs if w is None else signs * torch.sqrt(w).to(signs.dtype)
+        X = q.A
         if canonical_compute_dtype(compute_dtype) == "int8":
             # quantize before the pad so the padded copy is 1 B/elem; the
             # dequantization scales join the fused row scale

@@ -25,12 +25,16 @@ truthful verdict; this layer turns engine failures (STALLED / LEVEL_INVALID
    verdicts. ``on_segment`` may hand back replacement level Grams, and the
    driver repreconditions mid-solve.
 
+``robust_path_solve_batched`` runs this policy at every point of a ν grid
+off one shared λ-free ladder.
+
 Checkpoints and preemption (``checkpoint=``, ``preempt=``) are not ported
 yet and raise ``NotImplementedError`` (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -45,7 +49,9 @@ from .adaptive_padded import (
     padded_adaptive_solve_batched,
     padded_solve_segment,
     padded_trip_cap,
+    path_nus,
     prepare_padded_solve,
+    prepare_path_ladder,
     reprecondition_padded,
 )
 from .level_grams import fold_seeds
@@ -56,6 +62,7 @@ DEFAULT_SEGMENT_TRIPS = 32
 
 _STAT_KEYS = ("status", "dtilde", "m_final", "iters", "doublings", "level",
               "invalid_levels")
+_PATH_STAT_KEYS = _STAT_KEYS + ("retries", "fell_back", "converged", "stalled")
 
 
 def _refuse_checkpoints(checkpoint, preempt) -> None:
@@ -309,3 +316,73 @@ def robust_padded_solve_batched(
         stalled=torch.as_tensor(st["status"] == int(SolveStatus.STALLED)),
         trips=trips, segments=segments, resumed=False, deadline_hit=deadline_hit)
     return x, stats
+
+
+def robust_path_solve_batched(
+    q: Quadratic,
+    seeds,
+    nus,
+    *,
+    m_max: int,
+    method: str = "pcg",
+    sketch: str = "gaussian",
+    max_iters: int = 100,
+    rho: float = 0.5,
+    tol: float = 1e-10,
+    gram_hvp: bool | None = None,
+    init_level: torch.Tensor | None = None,
+    max_retries: int = 2,
+    fallback: bool = True,
+    compute_dtype: str = "fp32",
+    warm_start: bool = True,
+    grams: torch.Tensor | None = None,
+    gram_full: torch.Tensor | None = None,
+    device=None,
+):
+    """A regularization path with the full recovery policy at every point.
+
+    The λ-free ladder (and the true Gram) is paid once through
+    ``prepare_path_ladder``, or supplied as ``grams=`` / ``gram_full=`` (the
+    service's ladder cache), and every grid point runs
+    ``robust_padded_solve_batched`` off it, warm-starting x and the ladder
+    level from the previous point. Retries and the fallback act per point:
+    a retry redraws the sketch of that point's failed slots (one more sketch
+    pass on the gathered sub-batch), and a fallen-back slot still
+    warm-starts the next point (its x is finite).
+
+    ``nus`` is (P,) shared or (P, B) per problem; ``q.nu`` is ignored.
+    Returns ``(xs, stats)``: xs (P, B, d); the per-problem stats stacked to
+    (P, B); ``trips`` and ``segments`` summed over the path; and
+    ``sketch_passes``, 1 for the path plus 1 per retry attempt."""
+    if not q.batched:
+        raise ValueError("robust_path_solve_batched expects a batched Quadratic")
+    dev = resolve_device(device)
+    B = q.batch
+    seeds = batch_seeds(seeds, B, dev)
+    nus = path_nus(nus, B, q.b.dtype, dev)
+    if grams is None:
+        grams, gram_full = prepare_path_ladder(
+            q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
+            compute_dtype=compute_dtype, device=dev)
+    xs, per_point = [], []
+    x_prev, lvl = None, init_level
+    sketch_passes = 1
+    for p in range(nus.shape[0]):
+        q_p = dataclasses.replace(q, nu=nus[p])
+        x, stats = robust_padded_solve_batched(
+            q_p, seeds, m_max=m_max, method=method, sketch=sketch,
+            max_iters=max_iters, rho=rho, tol=tol, gram_hvp=gram_hvp,
+            init_level=lvl, max_retries=max_retries, fallback=fallback,
+            compute_dtype=compute_dtype, grams=grams, gram_full=gram_full,
+            x0=x_prev, device=dev)
+        # each retry attempt that ran redrew a sketch on the sub-batch
+        sketch_passes += int(stats["retries"].max())
+        xs.append(x)
+        per_point.append(stats)
+        if warm_start:
+            x_prev, lvl = x, stats["level"].to(dev)
+    out = {k: torch.stack([s[k] for s in per_point]) for k in _PATH_STAT_KEYS}
+    out["trips"] = sum(int(s["trips"]) for s in per_point)
+    out["segments"] = sum(int(s["segments"]) for s in per_point)
+    out["sketch_passes"] = sketch_passes
+    return torch.stack(xs), out

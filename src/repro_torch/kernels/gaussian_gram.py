@@ -61,6 +61,28 @@ def counter_hash(seeds: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
     return _mix(ctr[None] ^ k.reshape((-1,) + (1,) * ctr.dim()))
 
 
+def fold_seeds(seeds: torch.Tensor, tag) -> torch.Tensor:
+    """A new uint32 seed per problem from (seed, tag): mix(mix(seed) + mix(tag)).
+    For a fixed tag it is a bijection of the seed. ``tag`` is an int or a
+    tensor broadcasting against ``seeds``. The robust driver folds in the
+    retry attempt, the Newton driver its outer step, the service its slot
+    ids, the SRHT its two streams."""
+    tag = torch.as_tensor(tag, dtype=torch.int64, device=seeds.device) & _M32
+    return _mix((_mix(seeds & _M32) + _mix(tag)) & _M32)
+
+
+def hash_stream(seeds: torch.Tensor, tag: int, length: int) -> torch.Tensor:
+    """(B, length) uint32 words (int64 carrier) of stream ``tag`` of each
+    seed (B,): the samples of the SRHT and the SJLT."""
+    ctr = torch.arange(length, dtype=torch.int64, device=seeds.device)
+    return counter_hash(fold_seeds(seeds, tag), ctr)
+
+
+def hash_signs(h: torch.Tensor) -> torch.Tensor:
+    """±1 fp32 from the top bit of each hash word."""
+    return 1.0 - 2.0 * (h >> 31).to(torch.float32)
+
+
 def hash_words(seeds: torch.Tensor, ctr: torch.Tensor):
     """(h1, h2): the two uint32 hash words (int64 carrier) of each counter."""
     h1 = counter_hash(seeds, ctr)

@@ -1,18 +1,23 @@
-"""Ridge serving launcher: random-shape ridge requests through the port's
-shape-class bucketing and batched adaptive engine.
+"""Solver serving launcher: random-shape ridge, GLM and λ-path requests
+through the port's shape-class bucketing and batched adaptive engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
+        [--glm N] [--path N] [--path-points P] \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
         [--device cuda|cpu] [--deadline-s T] [--segment-trips K]
 
-Mirrors ``repro.launch.serve --ridge`` for ridge traffic only; the data is
-drawn from a seeded ``torch.Generator`` on the chosen device. ``--sketch``
-is the service's default family (the n = 16384 class keeps its SRHT) and
-``--dtype`` the sketch pass's precision; certificates stay fp32 and record
-both. ``--deadline-s`` bounds the flush: requests that run out of time
-come back DEADLINE_EXCEEDED with their best iterates, the solves running in
-segments of ``--segment-trips`` loop trips. LM serving, GLM and path
-traffic and meshes are not ported yet.
+Mirrors ``repro.launch.serve --ridge``; the data is drawn from a seeded
+``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
+requests (``synthetic_logistic_problem``, ν uniform in [0.1, 0.5]) solved
+by sketched Newton; ``--path N`` adds N ridge requests over a grid of
+``--path-points`` values of ν (geomspace(1, 1e-2)), each grid solved off one
+sketch pass, with the ladder cache on, and then resubmits the first one to
+show a cache hit. ``--sketch`` is the service's default family (the
+n = 16384 class keeps its SRHT) and ``--dtype`` the sketch pass's precision;
+certificates stay fp32 and record both. ``--deadline-s`` bounds the flush:
+requests that run out of time come back DEADLINE_EXCEEDED with their best
+iterates, the ridge solves running in segments of ``--segment-trips`` loop
+trips. LM serving and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,24 +25,44 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
-from repro_torch.serve.solver_service import SolverService
+from repro_torch.core.objectives import synthetic_logistic_problem
+from repro_torch.serve.solver_service import GLMSolution, PathSolution, SolverService
+
+
+def _shape(g, dev) -> tuple[int, int]:
+    n = int(torch.randint(64, 1800, (), generator=g, device=dev))
+    d = int(torch.randint(8, 120, (), generator=g, device=dev))
+    return n, d
 
 
 def serve_ridge(args) -> dict:
     svc = SolverService(method="pcg", sketch=args.sketch, compute_dtype=args.dtype,
-                        segment_trips=args.segment_trips, device=args.device)
+                        segment_trips=args.segment_trips, ladder_cache=bool(args.path),
+                        device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     for _ in range(args.requests):
-        n = int(torch.randint(64, 1800, (), generator=g, device=dev))
-        d = int(torch.randint(8, 120, (), generator=g, device=dev))
+        n, d = _shape(g, dev)
         A = torch.randn((n, d), generator=g, device=dev) / n ** 0.5
         y = torch.randn((n,), generator=g, device=dev)
         nu = 0.05 + 0.45 * float(torch.rand((), generator=g, device=dev))
         svc.submit(A, y, nu=nu)
+    for _ in range(args.glm):
+        A, y = synthetic_logistic_problem(g, *_shape(g, dev))
+        nu = 0.1 + 0.4 * float(torch.rand((), generator=g, device=dev))
+        svc.submit_glm(A, y, nu, family="logistic")
+    paths = {}
+    nus = np.geomspace(1.0, 1e-2, args.path_points)
+    for _ in range(args.path):
+        # strong → weak regularization, so the warm starts move downhill
+        n, d = _shape(g, dev)
+        A = torch.randn((n, d), generator=g, device=dev) / n ** 0.5
+        y = torch.randn((n,), generator=g, device=dev)
+        paths[svc.submit_path(A, y, nus)] = (A, y)
     t0 = time.perf_counter()
     sols = svc.flush(deadline_s=args.deadline_s)
     dt = time.perf_counter() - t0
@@ -46,7 +71,10 @@ def serve_ridge(args) -> dict:
           f"({len(sols) / dt:.1f} req/s) — {svc.stats['batches']} batches of "
           f"{svc.batch_size}, {svc.stats['padded_slots']} padded slots "
           f"({100 * svc.slot_utilization():.0f}% slot utilization)")
-    ok = [s for s in sols.values() if s.converged]
+    glm = [s for s in sols.values() if isinstance(s, GLMSolution)]
+    path = [s for s in sols.values() if isinstance(s, PathSolution)]
+    ok = [s for s in sols.values()
+          if s.converged and not isinstance(s, (GLMSolution, PathSolution))]
     if ok:
         m = sorted(s.m_final for s in ok)
         print(f"ridge certificates: m_final min/median/max = "
@@ -59,14 +87,41 @@ def serve_ridge(args) -> dict:
           + f"; retries={svc.stats['retries']}, fallbacks={svc.stats['fallbacks']}, "
           f"deadline_exceeded={svc.stats['deadline_exceeded']}, "
           f"segments={svc.stats['segments']}")
+    if glm:
+        outer = [s.newton_iters for s in glm]
+        print(f"glm certificates (logistic): {sum(s.converged for s in glm)}/{len(glm)} "
+              f"converged, outer iters min/max = {min(outer)}/{max(outer)}, "
+              f"max decrement λ̃²/2 = {max(s.decrement for s in glm):.2e}, "
+              f"m trajectory (req {glm[0].req_id}): {glm[0].m_trajectory}")
+    if path:
+        pts = [p for s in path for p in s.points]
+        print(f"path certificates: {sum(s.converged for s in path)}/{len(path)} grids "
+              f"converged ({args.path_points} λ points each), "
+              f"{sum(s.sketch_passes for s in path)} one-touch passes total, "
+              f"max δ̃ = {max(p.delta_tilde for p in pts):.2e}, warm m trajectory "
+              f"(req {path[0].req_id}): {tuple(p.m_final for p in path[0].points)}")
+        # the same grid again: its ladder comes from the fingerprint cache
+        A, y = paths[min(paths)]
+        rid = svc.submit_path(A, y, nus)
+        warm = svc.flush()[rid]
+        print(f"repeat-A path round: cache_hit={warm.cache_hit}, "
+              f"sketch_passes={warm.sketch_passes} (ladder served from the "
+              f"fingerprint cache; {svc.stats['sketch_passes_saved']} passes saved)")
     return sols
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ridge", action="store_true", required=True,
-                   help="serve ridge-solve traffic (the only ported workload)")
-    p.add_argument("--requests", type=int, default=24)
+                   help="serve solver traffic (the only ported workload)")
+    p.add_argument("--requests", type=int, default=24, help="ridge requests")
+    p.add_argument("--glm", type=int, default=0,
+                   help="logistic GLM requests, solved by sketched Newton")
+    p.add_argument("--path", type=int, default=0,
+                   help="λ-path requests, each grid off one sketch pass (turns "
+                        "the ladder cache on)")
+    p.add_argument("--path-points", type=int, default=8,
+                   help="grid points per λ-path request")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)

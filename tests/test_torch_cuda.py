@@ -9,6 +9,8 @@ have no CPU or interpret mode). On a machine with a card:
 not need and may not have.)
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -40,9 +42,10 @@ def test_gaussian_sa_kernel_matches_plain(dev, shared, scaled, n, d, m):
     A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
     seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
     w = torch.rand((B, n), generator=g, device=dev) + 0.5 if scaled else None
-    before = ops.LAUNCHES["gaussian_sa"]
+    leg = ops.leg("gaussian_sa", "fp32", weighted=scaled)
+    before = ops.LAUNCHES[leg]
     got = ops.gaussian_sa(A, seeds, m, row_weights=w)
-    assert ops.LAUNCHES["gaussian_sa"] == before + 1
+    assert ops.LAUNCHES[leg] == before + 1
     want = tg.gaussian_sa_ref(A, seeds, m, scale=None if w is None else torch.sqrt(w))
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
@@ -328,7 +331,7 @@ def test_gaussian_sa_reduced_legs_match_plain(dev, compute_dtype, shared, scaled
     A = torch.randn((n, d) if shared else (B, n, d), generator=g, device=dev)
     seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
     w = torch.rand((B, n), generator=g, device=dev) + 0.5 if scaled else None
-    leg = ops.leg("gaussian_sa", compute_dtype)
+    leg = ops.leg("gaussian_sa", compute_dtype, weighted=scaled)
     before = ops.LAUNCHES[leg]
     got = ops.gaussian_sa(A, seeds, m, row_weights=w, compute_dtype=compute_dtype)
     assert ops.LAUNCHES[leg] == before + 1
@@ -449,3 +452,127 @@ def test_segmented_bitwise_monolithic_on_card(dev, method, segment_trips):
     for k in ("status", "m_final", "iters", "dtilde", "level", "doublings", "trips"):
         assert torch.equal(s[k], s_ref[k]), k
     assert s["segments"] == -(-int(s_ref["trips"]) // segment_trips)
+
+
+def _weighted_batch(B, n, d, seed):
+    """A weighted batch built on the CPU: A (B, n, d), Newton-like weights
+    in (0, 1/4] with a few rows dropped, b, ν and Λ."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn((B, n, d), generator=g) / n ** 0.5
+    w = 0.02 + 0.23 * torch.rand((B, n), generator=g)
+    w[torch.rand((B, n), generator=g) < 0.05] = 0.0
+    b = torch.randn((B, d), generator=g)
+    return A, w, b
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("family", ["gaussian", "gaussian_dense", "sjlt", "srht"])
+def test_weighted_level_grams_on_card_match_cpu(dev, family, compute_dtype):
+    """The weighted one-touch pass on the card (the weights folded into the
+    Gaussian column scale, the SJLT signs or the FWHT row scale) against the
+    plain version on the CPU, inputs built on the CPU, at the top class's
+    width: every ladder level within 1e-5 of its largest entry (SJLT and
+    FWHT: the same products; the Grams sum in another order). The Gaussian
+    families add what the SA tolerances above carry into a Gram,
+    2·max|SA|·δ + δ², δ = 1e-4·max|SA| plus, in the reduced legs, one bf16
+    flip of an S entry (2^-8·max|S·scale|·max|A|)."""
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.level_grams import get_provider
+    from repro_torch.core.quadratic import Quadratic
+
+    B, n, d, m_max = 4, 4096, 256, 512
+    A, w, b = _weighted_batch(B, n, d, 3)
+    seeds = torch.tensor([7, 8, 9, 10], dtype=torch.int64)
+    prov, ladder = get_provider(family), doubling_ladder(m_max)
+    leg = ops.leg({"srht": "fwht", "sjlt": "sjlt"}.get(family, "gaussian_sa"),
+                  compute_dtype, weighted=family == "gaussian")
+    grams = []
+    for device in ("cpu", dev):
+        q = Quadratic(A=A.to(device), b=b.to(device), nu=torch.ones(B, device=device),
+                      lam_diag=torch.ones((B, d), device=device), batched=True,
+                      row_weights=w.to(device))
+        data = {k: v.to(device) for k, v in prov.sample(seeds, m_max, n).items()}
+        before = ops.LAUNCHES[leg]
+        grams.append(prov.level_grams(data, q, ladder, compute_dtype=compute_dtype).cpu())
+        launched = ops.LAUNCHES[leg] - before
+        assert launched == (0 if device == "cpu" or family == "gaussian_dense" else 1)
+    want, got = grams
+    if family.startswith("gaussian"):
+        from repro_torch.kernels.gaussian_gram import gaussian_s_dense, resolve_stream
+
+        A_s, scale = resolve_stream(A, B, w, compute_dtype)
+        s_max = float((gaussian_s_dense(seeds, m_max, n) * scale[:, None, :]).abs().max())
+        flip = 0.0 if compute_dtype == "fp32" else 2.0 ** -8 * s_max * float(
+            A_s.float().abs().max())
+    for lvl, m in enumerate(ladder):
+        atol = 1e-5 * float(want[lvl].abs().max())
+        if family.startswith("gaussian"):
+            # max|SA| over the level's rows, from the Gram's diagonal (m·G_jj)
+            sa_max = float(want[lvl].diagonal(dim1=-2, dim2=-1).max() * m) ** 0.5
+            delta = 1e-4 * sa_max + flip
+            atol += 2.0 * sa_max * delta + delta ** 2
+        assert float((got[lvl] - want[lvl]).abs().max()) <= atol, (lvl, m)
+
+
+@pytest.mark.parametrize("sketch,compute_dtype", [("gaussian", "fp32"), ("gaussian", "bf16"),
+                                                  ("sjlt", "int8"), ("srht", "fp32")])
+def test_path_bitwise_looped_single_lambda_on_card(dev, sketch, compute_dtype):
+    """On the card, a path with warm start off is bitwise a per-ν loop of
+    single solves, handed the shared ladder or recomputing it inline: the
+    kernels have no atomics, and nothing reduces over the batch."""
+    from repro_torch.core import adaptive_padded as ap
+    from repro_torch.core.quadratic import from_least_squares_batch
+
+    B, n, d, m_max, P = 4, 2048, 128, 256, 4
+    g = torch.Generator().manual_seed(2)
+    A = (torch.randn((B, n, d), generator=g) / n ** 0.5).to(dev)
+    q = from_least_squares_batch(A, torch.randn((B, n), generator=g).to(dev),
+                                 torch.ones(B, device=dev))
+    seeds = torch.tensor([3, 4, 5, 6], dtype=torch.int64, device=dev)
+    nus = torch.tensor([1.0, 0.3, 0.1, 0.03], device=dev)
+    lvl = torch.full((B,), 3, dtype=torch.int64, device=dev)
+    kw = dict(m_max=m_max, method="pcg", sketch=sketch, max_iters=200,
+              compute_dtype=compute_dtype, device=dev)
+    xs, st = ap.padded_path_solve_batched(q, seeds, nus, init_level=lvl, warm_start=False, **kw)
+    grams, gfull = ap.prepare_path_ladder(q, seeds, m_max=m_max, sketch=sketch,
+                                          compute_dtype=compute_dtype, device=dev)
+    for p in range(P):
+        q_p = dataclasses.replace(q, nu=torch.full((B,), float(nus[p]), device=dev))
+        x_sh, s_sh = ap.padded_adaptive_solve_batched(q_p, seeds, init_level=lvl, grams=grams,
+                                                      gram_full=gfull, **kw)
+        x_in, s_in = ap.padded_adaptive_solve_batched(q_p, seeds, init_level=lvl, **kw)
+        assert torch.equal(xs[p], x_sh) and torch.equal(xs[p], x_in), p
+        for k in ("dtilde", "m_final", "iters", "status"):
+            assert torch.equal(st[k][p], s_sh[k]) and torch.equal(st[k][p], s_in[k]), (p, k)
+
+
+@pytest.mark.parametrize("sketch", ["gaussian", "sjlt"])
+def test_ladder_cache_repeat_bitwise_on_card(dev, sketch):
+    """The service on the card under ``ladder_cache=True``: the same path
+    traffic twice; the second round hits the cache (no sketch kernel
+    launched, sketch_passes 0) and every answer is bitwise the first's."""
+    from repro_torch.serve.solver_service import SolverService
+
+    svc = SolverService(batch_size=4, sketch=sketch, ladder_cache=True, device=dev)
+    g = torch.Generator().manual_seed(5)
+    reqs = [(torch.randn((600 + 100 * i, 60), generator=g) / 30.0,
+             torch.randn(600 + 100 * i, generator=g)) for i in range(4)]
+    nus = (1.0, 0.3, 0.1, 0.03)
+    rounds = []
+    for _ in range(2):
+        before = dict(ops.LAUNCHES)
+        ids = [svc.submit_path(A, y, nus) for A, y in reqs]
+        sols = svc.flush()
+        torch.cuda.synchronize()
+        rounds.append(([sols[i] for i in ids],
+                       sum(ops.LAUNCHES[k] - before[k] for k in before)))
+    (cold, l_cold), (warm, l_warm) = rounds
+    assert l_cold > 0 and l_warm == 0
+    assert svc.stats["sketch_passes_saved"] == 1
+    for a, b in zip(cold, warm):
+        assert not a.cache_hit and a.sketch_passes == 1
+        assert b.cache_hit and b.sketch_passes == 0 and b.converged
+        for pa, pb in zip(a.points, b.points):
+            assert torch.equal(pa.x, pb.x)
+            assert (pa.delta_tilde, pa.m_final, pa.iters, pa.status) == \
+                (pb.delta_tilde, pb.m_final, pb.iters, pb.status)
