@@ -58,12 +58,36 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    inner solves), per path chunk (its prepare and per-point solves) and per
    fingerprint, and the launch counts of every leg over the phase, the
    Gaussian kernel's weighted fp32 and bf16 legs included;
-7. summary: one ``{"kernels": [...]}`` line, then the device line last.
+7. preemption and chaos at full width, the top class and the SRHT class
+   with B = 16 and phase 4's traffic: (a) in gaussian/fp32 (top),
+   srht/fp32 (SRHT) and sjlt/int8 (top), a service with a checkpoint
+   directory and ``segment_trips=8`` whose preemption flag turns on after
+   its second poll raises ``PreemptedError`` with a committed checkpoint,
+   and a new service with the same seed and submissions resumes it to
+   answers bitwise an uninterrupted checkpointing run's, x and every
+   certificate (ms per save and restore, bytes per checkpoint, the
+   recomputed ``prepare``); (b) ``python -m repro_torch.launch.serve
+   --preempt-after`` on the card: SIGTERM mid-flush, exit 75, a clean
+   ``--resume``, every answer finite and audited; (c) one batch each in
+   gaussian/fp32, gaussian/bf16, sjlt/int8 (top) and srht/fp32 (SRHT) with
+   a NaN row, an Inf target and an adversarial seed: the faulty slots not
+   OK (the adversarial one RETRIED), the clean neighbours OK and within
+   1e-6 of the clean batch's answers (bitwise is printed), retries within
+   the budget, every x finite; in gaussian/fp32 also a 4-shard dropout
+   provider that lost shard 1 and a shard lost at segment 2 (a
+   ``ShardLossInjector`` on an emulated ``ShardLadderCache``), every answer
+   within the ridge gate; (d) every kernel leg at phase 3's shapes: a NaN
+   in one problem's A, row weight or row scale leaves that problem's output
+   non-finite and every other problem's bitwise the clean launch's. The
+   launch counts are set to 0 before (a) and before (c) and read after
+   each;
+8. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -617,6 +641,21 @@ def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
     return launches
 
 
+def _ridge_gate(x, A, y, nu, iters):
+    """(H-norm rel error vs the fp64 direct solve, its tolerance) of one
+    answer: phase 4's gate, for a λ-path point or a phase 7 answer."""
+    import torch
+
+    A64 = A.double()
+    H = A64.T @ A64 + nu ** 2 * torch.eye(A.shape[1], dtype=torch.float64, device=A.device)
+    x64 = torch.linalg.solve(H, A64.T @ y.double())
+    e = x.double() - x64
+    err = float(torch.sqrt((e @ H @ e) / (x64 @ H @ x64)))
+    ev = torch.linalg.eigvalsh(H)
+    tol = FP32_UNIT * float(ev[-1] / ev[0]) * max(int(iters), 1) ** 0.5
+    return err, max(SOLVE_REL_TOL, tol)
+
+
 def _same_answer(a, b) -> bool:
     """x bitwise equal and every certificate equal (a NaN δ̃ equals NaN)."""
     import torch
@@ -908,16 +947,8 @@ def phase_glm_path(smi, dev="cuda", seed=30):
         worst, bad = 0.0, []
         for rid, (A, y, _) in zip(ids, top):
             s = sols[rid]
-            A64 = A.double()
-            G = A64.T @ A64
             for pt in s.points:
-                H = G + pt.nu ** 2 * torch.eye(A.shape[1], dtype=torch.float64, device=dev)
-                x64 = torch.linalg.solve(H, A64.T @ y.double())
-                e = pt.x.double() - x64
-                err = float(torch.sqrt((e @ H @ e) / (x64 @ H @ x64)))
-                ev = torch.linalg.eigvalsh(H)
-                tol = max(SOLVE_REL_TOL,
-                          FP32_UNIT * float(ev[-1] / ev[0]) * max(pt.iters, 1) ** 0.5)
+                err, tol = _ridge_gate(pt.x, A, y, pt.nu, pt.iters)
                 worst = max(worst, err / tol)
                 if pt.status not in ("OK", "RETRIED") or not err <= tol:
                     bad.append((rid, pt.nu, pt.status, err, tol))
@@ -997,6 +1028,281 @@ def phase_glm_path(smi, dev="cuda", seed=30):
     return launches
 
 
+# phase 7: the (sketch, compute_dtype, class) of the preempt-and-resume runs
+# and of the chaos batches; the chaos batches' faulty slots; the signal
+# cycle's traffic and the seconds after its flush began that SIGTERM lands
+FT_RESUME = [("gaussian", "fp32", "top"), ("srht", "fp32", "srht"), ("sjlt", "int8", "top")]
+FT_CHAOS = [("gaussian", "fp32", "top"), ("gaussian", "bf16", "top"), ("sjlt", "int8", "top"),
+            ("srht", "fp32", "srht")]
+NAN_SLOT, INF_SLOT, ADVERSARIAL_SLOT = 3, 7, 11
+NEIGHBOR_TOL = 1e-6
+CYCLE_REQUESTS, CYCLE_AFTER_S = 160, 0.5
+
+
+class _StopAfterPolls:
+    """A preemption flag whose ``should_stop`` turns on after its ``n``-th
+    poll: the driver polls once before each segment."""
+
+    def __init__(self, n):
+        self.n, self.polls = n, 0
+
+    @property
+    def should_stop(self):
+        self.polls += 1
+        return self.polls > self.n
+
+
+def _nan_isolation(smi):
+    """Phase 7 (d): every kernel leg at phase 3's shapes confines a NaN to
+    its own problem; not counted as main-path launches."""
+    import torch
+
+    from repro_torch.dist.compress import quantize_rows
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    bad = 5
+    B, n, d, m = 16, 4096, 256, 512
+    A = torch.randn((B, n, d), generator=g, device=dev) / n ** 0.5
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
+    w = torch.rand((B, n), generator=g, device=dev) + 0.5
+    tgt = torch.randint(0, m, (B, n), generator=g, device=dev, dtype=torch.int32)
+    sg = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+    nf = 16384
+    X = torch.randn((B, nf, d), generator=g, device=dev)
+    s = torch.where(torch.rand((B, nf), generator=g, device=dev) < 0.5, -1.0, 1.0)
+
+    def nan_row(t):
+        t = t.clone()
+        t[bad, 17] = float("nan")
+        return t
+
+    legs = []
+    for cd in ("fp32", "bf16", "int8"):
+        name = ops.leg("gaussian_sa", cd)
+        legs.append((f"{name} (NaN row of A)",
+                     lambda A_, cd=cd: ops.gaussian_sa(A_, seeds, m, compute_dtype=cd), A))
+        if cd != "int8":
+            legs.append((f"{ops.leg('gaussian_sa', cd, weighted=True)} (NaN row weight)",
+                         lambda w_, cd=cd: ops.gaussian_sa(A, seeds, m, row_weights=w_,
+                                                           compute_dtype=cd), w))
+        legs.append((f"{ops.leg('sjlt', cd)} (NaN row of A)",
+                     lambda A_, cd=cd: ops.sjlt_apply_batched(A_, tgt, sg, m, compute_dtype=cd),
+                     A))
+        legs.append((f"{ops.leg('fwht', cd)} (NaN row scale)",
+                     lambda s_, cd=cd: ops.fwht_cols(X, row_scale=s_, compute_dtype=cd), s))
+    # the int8 FWHT leg as the SRHT pass runs it: A's codes, their scales in
+    # the row scale (a NaN row of A quantizes to a NaN scale)
+    codes, a_scales = quantize_rows(X)
+    legs.append(("fwht.int8 codes (NaN row scale)",
+                 lambda s_: ops.fwht_cols(codes, row_scale=s_, compute_dtype="int8"),
+                 s * a_scales))
+    legs.append(("fwht unscaled (NaN row of X)", lambda X_: ops.fwht_cols(X_), X))
+    for label, fn, clean_in in legs:
+        clean, out = fn(clean_in), fn(nan_row(clean_in))
+        torch.cuda.synchronize()
+        keep = [i for i in range(B) if i != bad]
+        ok = (bool(torch.isfinite(clean).all()) and not bool(torch.isfinite(out[bad]).all())
+              and torch.equal(out[keep], clean[keep]))
+        print(f"[ft] (d) {label}: problem {bad} non-finite, the other {len(keep)} bitwise the "
+              f"clean launch's: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {label} does not confine a NaN to its problem")
+    del A, X, codes
+
+
+def phase_ft(smi, dev="cuda", seed=40):
+    """Preemption, the signal cycle, chaos and NaN isolation at full width
+    (phase 7); returns the kernel legs' launch counts over (a) and (c), each
+    set to 0 just before it and read just after."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import robust
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.distributed import ShardLadderCache
+    from repro_torch.core.quadratic import Quadratic
+    from repro_torch.core.status import SolveStatus
+    from repro_torch.ft import checkpoint as ckpt_module
+    from repro_torch.ft import faults
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.serve.solver_service import RidgeRequest, SolverService
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (_, top_n, top_d), (_, srht_n, srht_d) = TRAFFIC[-2], TRAFFIC[-1]
+    traffic = {"top": [_request(g, dev, top_n, top_d) for _ in range(16)],
+               "srht": [_request(g, dev, srht_n, srht_d) for _ in range(16)]}
+
+    # (a) preempt after two segments, resume on a new service
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck_") as tmp:
+        for sketch, cd, which in FT_RESUME:
+            reqs, label = traffic[which], f"{sketch}/{cd}, {which} class"
+
+            def serve(ckdir, preempt=None):
+                # the SRHT class carries its own family; the service's is the default
+                svc = SolverService(sketch="gaussian" if sketch == "srht" else sketch,
+                                    compute_dtype=cd, segment_trips=8, device=dev,
+                                    checkpoint_dir=Path(tmp) / ckdir, preempt=preempt)
+                ids = [svc.submit(A, y, nu) for A, y, nu in reqs]
+                torch.cuda.synchronize()
+                return svc, ids
+
+            svc, ids = serve(f"{sketch}-{cd}-ref")
+            t0 = time.perf_counter()
+            with _CardTimer(CheckpointManager, "save") as saves, \
+                    _CardTimer(ckpt_module, "_to_host") as copies, \
+                    _CardTimer(CheckpointManager, "_write") as writes:
+                ref = svc.flush()
+            t_ref = time.perf_counter() - t0
+            svc, _ = serve(f"{sketch}-{cd}", preempt=_StopAfterPolls(2))
+            try:
+                svc.flush()
+                raise SystemExit(f"chip_smoke: the preempted flush ({label}) ended normally")
+            except robust.PreemptedError as e:
+                err = e
+            step = CheckpointManager(err.checkpoint_dir).latest_step()
+            nbytes = (sum(p.stat().st_size for p in (Path(err.checkpoint_dir)
+                                                     / f"step_{step:09d}").rglob("*"))
+                      if step is not None else 0)
+            svc, ids2 = serve(f"{sketch}-{cd}")
+            t0 = time.perf_counter()
+            with _CardTimer(CheckpointManager, "restore") as restores, \
+                    _CardTimer(robust, "prepare_padded_solve") as prep:
+                got = svc.flush()
+            t_res = time.perf_counter() - t0
+            same = sum(_same_answer(got[i], ref[i]) for i in ids)
+            ok = (step == err.segment == 2 and ids2 == ids and svc.stats["resumed_chunks"] >= 1
+                  and same == len(ids))
+            print(f"[ft] (a) {label}: PreemptedError at segment {err.segment}, committed step "
+                  f"{step}, {nbytes} bytes a checkpoint; a new service resumed "
+                  f"{svc.stats['resumed_chunks']} chunk(s), {same}/{len(ids)} answers bitwise "
+                  f"the uninterrupted segmented run's: {'ok' if ok else 'FAIL'}")
+            print(f"[ft]   save {_summary(saves.times)}: copies to the host "
+                  f"{sum(copies.times) / len(saves.times):.2f} ms a save ({len(copies.times)} "
+                  f"leaves in all), files written {_summary(writes.times)}")
+            print(f"[ft]   restore {_summary(restores.times)}; "
+                  f"prepare recomputed on resume {_summary(prep.times)}; flush uninterrupted "
+                  f"{t_ref * 1e3:.2f} ms ({len(saves.times)} saves), resumed "
+                  f"{t_res * 1e3:.2f} ms ({smi})")
+            if not ok:
+                raise SystemExit(f"chip_smoke: preempt and resume ({label}) is not bitwise the "
+                                 f"uninterrupted run, or did not resume")
+    launches = dict(ops.LAUNCHES)
+    print(f"[ft] launches over (a): {launches}")
+    missing = [k for k in ("gaussian_sa", "fwht", "sjlt.int8") if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched by (a)")
+
+    # (b) the real signal cycle, through the launcher, in a subprocess
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--preempt-after",
+           str(CYCLE_AFTER_S), "--requests", str(CYCLE_REQUESTS), "--device", dev.type]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=700, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith(("PREEMPTED", "statuses", "audited", "ALL_FINITE", "AUDIT_OK",
+                               "preemption cycle"))]
+    for ln in lines:
+        print(f"[ft] (b) {ln}")
+    ok = r.returncode == 0 and "preemption cycle OK" in r.stdout
+    print(f"[ft] (b) {' '.join(cmd[1:])}: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: the SIGTERM → 75 → --resume cycle failed:\n"
+                         f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+
+    # (c) chaos: a NaN row, an Inf target and an adversarial seed in one batch
+    ops.reset_launches()
+    for sketch, cd, which in FT_CHAOS:
+        reqs, label = traffic[which], f"{sketch}/{cd}, {which} class"
+        svc = SolverService(sketch="gaussian" if sketch == "srht" else sketch,
+                            compute_dtype=cd, device=dev)
+        cls = svc.bucket_for(*reqs[0][0].shape)
+        q, seeds = svc._pack(cls, [RidgeRequest(i, A, y, nu) for i, (A, y, nu) in
+                                   enumerate(reqs)])
+        Y = torch.zeros((16, cls.n), device=dev)
+        for i, (A, y, _) in enumerate(reqs):
+            Y[i, :A.shape[0]] = y
+        b_bad = q.b.clone()
+        b_bad[INF_SLOT] = q.A[INF_SLOT].T @ faults.inject_inf_entry(Y, INF_SLOT)[INF_SLOT]
+        q_bad = Quadratic(A=faults.inject_nan_row(q.A, NAN_SLOT), b=b_bad, nu=q.nu,
+                          lam_diag=q.lam_diag, batched=True)
+        adv = faults.AdversarialKeyProvider(sketch, seeds[ADVERSARIAL_SLOT])
+        kw = dict(m_max=cls.m_max, method=svc.method, max_iters=svc.max_iters, tol=svc.tol,
+                  compute_dtype=cd, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_c, s_c = robust.robust_padded_solve_batched(q, seeds, sketch=sketch, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x, s = robust.robust_padded_solve_batched(q_bad, seeds, sketch=adv, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        status = s["status"].tolist()
+        faulty = [NAN_SLOT, INF_SLOT, ADVERSARIAL_SLOT]
+        keep = [i for i in range(16) if i not in faulty]
+        gap = float((x[keep] - x_c[keep]).abs().max())
+        bitwise = torch.equal(x[keep], x_c[keep])
+        ok = (all(status[i] != int(SolveStatus.OK) for i in faulty[:2])
+              and status[ADVERSARIAL_SLOT] == int(SolveStatus.RETRIED)
+              and all(status[i] == int(s_c["status"][i]) == int(SolveStatus.OK) for i in keep)
+              and gap <= NEIGHBOR_TOL and int(s["retries"].max()) <= svc.max_retries
+              and bool(torch.isfinite(x).all()))
+        names = {i: SolveStatus(status[i]).name for i in faulty}
+        print(f"[ft] (c) {label}: faulty slots {names}, retries "
+              f"{[int(s['retries'][i]) for i in faulty]} (at most {svc.max_retries}); "
+              f"{len(keep)} clean neighbours OK, max |x - clean| {gap:.3e} "
+              f"({'bitwise' if bitwise else 'not bitwise'}, tolerance {NEIGHBOR_TOL:g}); every "
+              f"x finite: {'ok' if ok else 'FAIL'}; wall clean {(t1 - t0) * 1e3:.2f} ms, "
+              f"faulty {(t2 - t1) * 1e3:.2f} ms ({smi})")
+        if not ok:
+            raise SystemExit(f"chip_smoke: chaos batch {label} breaks an invariant "
+                             f"(statuses {status})")
+        if (sketch, cd) != ("gaussian", "fp32"):
+            continue
+        # shard loss before the solve (a dropout provider) and in the middle
+        # of it (a ShardLossInjector on the emulated shard cache)
+        ladder = doubling_ladder(cls.m_max)
+        cache = ShardLadderCache.from_emulation("gaussian", seeds, q, ladder, 4)
+        inj = faults.ShardLossInjector(cache, shard=1, at_segment=2)
+        runs = [("dropout_provider(gaussian, 4, (1,))", robust.robust_padded_solve_batched(
+                    q, seeds, sketch=faults.dropout_provider("gaussian", 4, (1,)), **kw)),
+                ("ShardLossInjector at segment 2", robust.segmented_padded_solve_batched(
+                    q, seeds, grams=cache.total(), on_segment=inj, segment_trips=8,
+                    gram_hvp=True, **kw))]
+        for name, (x_s, s_s) in runs:
+            worst, bad_slots = 0.0, []
+            for i, (A, y, nu) in enumerate(reqs):
+                err, tol = _ridge_gate(x_s[i, :A.shape[1]], A, y, nu, s_s["iters"][i])
+                worst = max(worst, err / tol)
+                if int(s_s["status"][i]) not in (int(SolveStatus.OK), int(SolveStatus.RETRIED)) \
+                        or err > tol:
+                    bad_slots.append((i, int(s_s["status"][i]), err, tol))
+            print(f"[ft] (c) {label}, {name}: statuses {sorted(set(s_s['status'].tolist()))}, "
+                  f"worst H-norm rel err vs fp64 as a share of the ridge gate {worst:.3f}"
+                  + (f", fired at segment {inj.fired_at}, shards alive {sorted(cache.alive)}"
+                     if "Injector" in name else ""))
+            if bad_slots or ("Injector" in name and inj.fired_at != 2):
+                raise SystemExit(f"chip_smoke: {name} did not recover: {bad_slots[:5]}")
+    run = dict(ops.LAUNCHES)
+    print(f"[ft] launches over (c): {run}")
+    missing = [k for k in ("gaussian_sa", "gaussian_sa.bf16", "sjlt.int8", "fwht")
+               if run[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernel legs {missing} were never launched by (c)")
+    launches = {k: launches[k] + run[k] for k in launches}
+
+    # (d) the kernels' NaN isolation, leg by leg
+    _nan_isolation(smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1039,6 +1345,10 @@ def main() -> int:
                          "the main path")
     print(f"[main] launches per kernel leg over phases 4, 5 and 6: {launches}")
     lap("phase 6 (GLM and path traffic)")
+    run = phase_ft(smi)
+    launches = {k: launches[k] + run[k] for k in launches}
+    print(f"[main] launches per kernel leg over phases 4 to 7: {launches}")
+    lap("phase 7 (preemption, chaos and NaN isolation)")
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

@@ -33,6 +33,10 @@ card; the tests hand the reference's ``jax.random`` samples over through
   m rows of a row stream drawn i.i.d. uniform WITH replacement, so every
   prefix is a valid m-row sample (the reference's law).
 
+``BlockEmulationProvider`` wraps any family as the sharded block sketch on
+one device (shard k seeded ``fold_seeds(seed, k)``), with shard dropout for
+the chaos tests (``ft.faults``).
+
 Compute dtype (``kernels.precision``): every provider applies it to the
 sketch pass only; the (L, B, d, d) Grams it returns are fp32 in every mode.
 """
@@ -203,6 +207,72 @@ class SRHTProvider:
                            compute_dtype=compute_dtype)
         picked = torch.gather(HX, 1, rows[:, :, None].expand(B, rows.shape[1], d))
         return prefix_level_grams(picked, ladder, inv_m_scale=True)
+
+
+class BlockEmulationProvider:
+    """One-device emulation of the sharded concatenated block sketch: shard
+    k applies ``inner`` with seeds ``fold_seeds(seed, k)`` to rows
+    [k·n/K, (k+1)·n/K) and the shard Grams are summed in shard order, so
+    blockdiag(S_k) has no cross terms and the sum is the sketch Gram of the
+    whole A. ``fold_seeds`` stands in for the reference's ``fold_in(key,
+    k)``; the sample is ``{"shards": [inner sample, ...]}``, so a test can
+    hand the reference's per-shard samples over. Pass the instance itself as
+    the engine's ``sketch=``.
+
+    ``drop_shards`` emulates shard loss: the listed shards add nothing to
+    the sum, the Gram a pod re-reduces over its surviving shards. That is
+    still a sketch of the surviving rows, a weaker preconditioner of the
+    whole problem; when the lost rows carried most of the mass, the engine's
+    guards, retries and fallback keep the answer honest."""
+
+    def __init__(self, inner, n_shards: int, drop_shards: tuple[int, ...] = ()):
+        self.inner = get_provider(inner)
+        self.n_shards = n_shards
+        self.drop_shards = tuple(sorted(set(drop_shards)))
+        if any(k < 0 or k >= n_shards for k in self.drop_shards):
+            raise ValueError(f"drop_shards {drop_shards} out of range for {n_shards}")
+        if len(self.drop_shards) >= n_shards:
+            raise ValueError("cannot drop every shard")
+        drop = f"-drop{list(self.drop_shards)}" if self.drop_shards else ""
+        self.name = f"block[{self.inner.name}x{n_shards}{drop}]"
+
+    def _check(self, n: int) -> int:
+        if n % self.n_shards:
+            raise ValueError(f"n={n} not divisible by {self.n_shards} emulated shards")
+        return n // self.n_shards
+
+    def sample(self, seeds, m_max, n):
+        n_loc = self._check(n)
+        return {"shards": [self.inner.sample(fold_seeds(seeds, k), m_max, n_loc)
+                           for k in range(self.n_shards)]}
+
+    def level_grams(self, data, q: Quadratic, ladder, row_weights=None,
+                    compute_dtype=None):
+        out = None
+        for k, (q_k, data_k) in enumerate(zip(shard_quadratics(q, self.n_shards,
+                                                               row_weights),
+                                              data["shards"])):
+            if k in self.drop_shards:          # a lost shard adds nothing
+                continue
+            # each shard's pass in the compute dtype; its fp32 Grams sum
+            g_k = self.inner.level_grams(data_k, q_k, ladder, compute_dtype=compute_dtype)
+            out = g_k if out is None else out + g_k
+        return out
+
+
+def shard_quadratics(q: Quadratic, n_shards: int, row_weights=None) -> list[Quadratic]:
+    """q's rows cut into ``n_shards`` equal blocks, each with its block of
+    the row weights (``row_weights`` overrides ``q.row_weights``). A block
+    of a per-problem A is copied contiguous, as a shard holds its rows: the
+    kernels read A only in that layout."""
+    if q.n % n_shards:
+        raise ValueError(f"n={q.n} not divisible by {n_shards} emulated shards")
+    n_loc = q.n // n_shards
+    w = _weights(q, row_weights)
+    return [Quadratic(A=q.A[..., k * n_loc:(k + 1) * n_loc, :].contiguous(), b=q.b, nu=q.nu,
+                      lam_diag=q.lam_diag, batched=q.batched,
+                      row_weights=None if w is None else w[:, k * n_loc:(k + 1) * n_loc])
+            for k in range(n_shards)]
 
 
 _PROVIDERS = {p.name: p for p in (

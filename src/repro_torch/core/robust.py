@@ -23,18 +23,24 @@ truthful verdict; this layer turns engine failures (STALLED / LEVEL_INVALID
    unfinished problems return their best finite iterate, its real δ̃ and
    ``DEADLINE_EXCEEDED``; problems that finished in time keep their
    verdicts. ``on_segment`` may hand back replacement level Grams, and the
-   driver repreconditions mid-solve.
+   driver repreconditions mid-solve (elastic shard loss).
+   **Preemption and crashes:** ``preempt=`` (an ``ft.PreemptionHandler``)
+   is polled between segments; when it is set, the state is checkpointed
+   through ``ft.checkpoint.CheckpointManager`` (``checkpoint=``) and
+   ``PreemptedError`` is raised. A restarted process (``resume=True``)
+   restores the last committed segment and goes on: the precompute is
+   deterministic given (q, seeds) and is recomputed, not stored, so the
+   resumed solve is bitwise the uninterrupted one. Saves every
+   ``checkpoint_every`` segments bound what a kill -9 loses.
 
 ``robust_path_solve_batched`` runs this policy at every point of a ν grid
 off one shared λ-free ladder.
-
-Checkpoints and preemption (``checkpoint=``, ``preempt=``) are not ported
-yet and raise ``NotImplementedError`` (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -43,6 +49,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .adaptive_padded import (
+    PaddedState,
     batch_seeds,
     doubling_ladder,
     finalize_padded_solve,
@@ -65,11 +72,39 @@ _STAT_KEYS = ("status", "dtilde", "m_final", "iters", "doublings", "level",
 _PATH_STAT_KEYS = _STAT_KEYS + ("retries", "fell_back", "converged", "stalled")
 
 
-def _refuse_checkpoints(checkpoint, preempt) -> None:
-    if checkpoint is not None or preempt is not None:
-        raise NotImplementedError(
-            "checkpoints and preemption are not ported yet (ROADMAP queue 1 "
-            "item 7)")
+class PreemptedError(RuntimeError):
+    """A solve was preempted between segments. Its state was checkpointed
+    first (when a checkpoint manager was attached), so a restarted process
+    resumes from ``segment`` exactly."""
+
+    def __init__(self, segment: int, checkpoint_dir=None):
+        self.segment = segment
+        self.checkpoint_dir = checkpoint_dir
+        where = f" (checkpointed to {checkpoint_dir})" if checkpoint_dir else ""
+        super().__init__(f"solve preempted at segment {segment}{where}; "
+                         f"re-run with resume=True to continue")
+
+
+def _as_checkpoint_manager(checkpoint):
+    """A ready CheckpointManager (duck-typed) or a directory path. The ft
+    import stays inside the function: ft is built on core, not core on ft."""
+    if checkpoint is None or hasattr(checkpoint, "latest_step"):
+        return checkpoint
+    if isinstance(checkpoint, (str, os.PathLike)):
+        from repro_torch.ft.checkpoint import CheckpointManager
+
+        return CheckpointManager(checkpoint)
+    raise TypeError(f"checkpoint must be a CheckpointManager or a path, got "
+                    f"{type(checkpoint).__name__}")
+
+
+def _solve_fingerprint(q: Quadratic, *, m_max, method, sketch, max_iters) -> str:
+    """Guards a resume against a checkpoint of another solve: a restored
+    state means something only under the same shapes and the same
+    (recomputed) precompute. The reference's string, so a checkpoint moves
+    between the packages."""
+    sk = getattr(sketch, "name", None) or str(sketch)
+    return f"{q.batch}x{q.n}x{q.d}:m{m_max}:{method}:{sk}:mi{max_iters}"
 
 
 def _gather_quadratic(q: Quadratic, idx: torch.Tensor,
@@ -102,6 +137,8 @@ def segmented_padded_solve_batched(
     segment_trips: int = DEFAULT_SEGMENT_TRIPS,
     deadline_s: float | None = None,
     checkpoint=None,
+    checkpoint_every: int = 1,
+    resume: bool = True,
     preempt=None,
     on_segment=None,
     grams: torch.Tensor | None = None,
@@ -110,8 +147,8 @@ def segmented_padded_solve_batched(
     device=None,
 ):
     """The segmented host driver: ``prepare`` once, then run the loop
-    ``segment_trips`` trips at a time, checking the deadline between
-    segments, and ``finalize`` whatever state the loop ends in.
+    ``segment_trips`` trips at a time, checking preemption and the deadline
+    between segments, and ``finalize`` whatever state the loop ends in.
 
     Same contract and return value as ``padded_adaptive_solve_batched``
     (bitwise equal when nothing fires), plus:
@@ -121,14 +158,25 @@ def segmented_padded_solve_batched(
       is synchronized after each segment, so the clock measures solve time,
       not enqueue time. Unfinished problems are finalized with
       ``DEADLINE_EXCEEDED``, their best finite iterate and its real δ̃.
+    * ``checkpoint`` — a CheckpointManager (or a directory) that stores
+      ``PaddedState._asdict()`` every ``checkpoint_every`` segments, and on
+      preemption; each save is blocking, so a COMMITTED marker never leads
+      its data.
+    * ``resume`` — restore the last committed segment of ``checkpoint``
+      before solving (nothing happens when there is none). The caller
+      presents the same problem and seeds; a fingerprint in the
+      checkpoint's ``extra`` refuses another solve's state with a
+      ValueError.
+    * ``preempt`` — an object with a ``should_stop`` attribute
+      (``ft.PreemptionHandler``), polled before each segment; when it is
+      set, the state is saved and ``PreemptedError`` raised.
     * ``on_segment`` — ``fn(segment, state) -> grams | None``; replacement
       (L, B, d, d) level Grams trigger ``reprecondition_padded``, with the
       ladder's length of extra trips for the re-climb.
     * ``grams`` / ``gram_full`` / ``x0`` — forwarded to ``prepare``.
 
-    Extra stats: ``segments`` (segments run), ``resumed`` (always False:
-    checkpoints are not ported) and ``deadline_hit``."""
-    _refuse_checkpoints(checkpoint, preempt)
+    Extra stats: ``segments`` (segments run in this call), ``resumed`` and
+    ``deadline_hit``."""
     if int(segment_trips) < 1:
         raise ValueError(f"segment_trips must be at least 1, got {segment_trips}")
     t0 = time.perf_counter()
@@ -139,12 +187,40 @@ def segmented_padded_solve_batched(
         tol=tol, grams=grams, gram_full=gram_full, x0=x0, device=dev)
     trip_budget = padded_trip_cap(m_max, max_iters)
     ladder_len = len(doubling_ladder(m_max))
-    deadline_hit, seg = False, 0
+    ckpt = _as_checkpoint_manager(checkpoint)
+    fingerprint = _solve_fingerprint(q, m_max=m_max, method=method, sketch=sketch,
+                                     max_iters=max_iters)
+    # seg numbers segments across restarts, seg_ran those of this call
+    seg = seg_ran = 0
+    resumed = False
+    if ckpt is not None and resume and ckpt.latest_step() is not None:
+        restored, extra = ckpt.restore(st._asdict())
+        got = extra.get("fingerprint")
+        if got != fingerprint:
+            raise ValueError(
+                f"checkpoint fingerprint mismatch: checkpoint is for {got!r}, this "
+                f"solve is {fingerprint!r}; refusing to resume onto another problem")
+        st = PaddedState(**restored)
+        seg = int(extra.get("segment", ckpt.latest_step()))
+        trip_budget = int(extra.get("trip_budget", trip_budget))
+        resumed = True
+
+    def save(segment: int):
+        ckpt.save(segment, st._asdict(), blocking=True,
+                  extra={"segment": segment, "fingerprint": fingerprint,
+                         "trip_budget": trip_budget})
+
+    deadline_hit = False
     while True:
         trips_now = int(st.trips)
         if bool(st.done.all()) or trips_now >= trip_budget:
             break
-        if deadline_s is not None and seg > 0 and time.perf_counter() - t0 >= deadline_s:
+        if preempt is not None and getattr(preempt, "should_stop", False):
+            if ckpt is not None:
+                save(seg)
+            raise PreemptedError(seg, getattr(ckpt, "dir", None))
+        if (deadline_s is not None and seg_ran > 0
+                and time.perf_counter() - t0 >= deadline_s):
             deadline_hit = True
             break
         limit = min(trip_budget, trips_now + int(segment_trips))
@@ -154,12 +230,15 @@ def segmented_padded_solve_batched(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seg += 1
+        seg_ran += 1
         if on_segment is not None:
             new_grams = on_segment(seg, st)
             if new_grams is not None:
                 pre, st = reprecondition_padded(q, pre, st, new_grams,
                                                 guards=guards, device=dev)
                 trip_budget += ladder_len   # re-anchored problems may re-climb
+        if ckpt is not None and seg_ran % max(1, checkpoint_every) == 0:
+            save(seg)
 
     x, stats = finalize_padded_solve(pre, st, m_max=m_max, device=dev)
     if deadline_hit:
@@ -167,7 +246,7 @@ def segmented_padded_solve_batched(
         # deadline; finished problems keep theirs bit for bit
         status = torch.where(st.done, stats["status"], int(SolveStatus.DEADLINE_EXCEEDED))
         stats.update(status=status, stalled=status == int(SolveStatus.STALLED))
-    stats.update(segments=seg, resumed=False, deadline_hit=deadline_hit)
+    stats.update(segments=seg_ran, resumed=resumed, deadline_hit=deadline_hit)
     return x, stats
 
 
@@ -189,6 +268,8 @@ def robust_padded_solve_batched(
     deadline_s: float | None = None,
     segment_trips: int | None = None,
     checkpoint=None,
+    checkpoint_every: int = 1,
+    resume: bool = True,
     preempt=None,
     on_segment=None,
     grams: torch.Tensor | None = None,
@@ -207,21 +288,24 @@ def robust_padded_solve_batched(
     ``invalid_levels``; ``trips`` and ``segments`` sum over all attempts,
     and ``resumed`` / ``deadline_hit`` are the first attempt's.
 
-    Setting any of ``deadline_s``, ``segment_trips`` or ``on_segment``
-    routes attempts through ``segmented_padded_solve_batched``; with none
-    set the path, and the numbers, are the monolithic ones. ``deadline_s``
-    is a budget over the WHOLE call: the first attempt gets all of it, each
-    retry what remains, and retries and the fallback are skipped once it is
-    spent. A ``DEADLINE_EXCEEDED`` slot is never retried, and a retry that
-    itself runs out of time keeps the previous verdict. ``grams`` /
-    ``gram_full`` / ``x0`` / ``on_segment`` bind to the first attempt only:
-    a retry redraws its sketch."""
-    _refuse_checkpoints(checkpoint, preempt)
+    Setting any of ``deadline_s``, ``segment_trips``, ``checkpoint``,
+    ``preempt`` or ``on_segment`` routes attempts through
+    ``segmented_padded_solve_batched``; with none set the path, and the
+    numbers, are the monolithic ones. ``deadline_s`` is a budget over the
+    WHOLE call: the first attempt gets all of it, each retry what remains,
+    and retries and the fallback are skipped once it is spent. A
+    ``DEADLINE_EXCEEDED`` slot is never retried, and a retry that itself
+    runs out of time keeps the previous verdict. ``grams`` / ``gram_full``
+    / ``x0`` / ``on_segment`` bind to the first attempt only: a retry
+    redraws its sketch. So do ``checkpoint`` / ``resume`` / ``preempt``: a
+    retry is another solve, which must neither overwrite nor resume from
+    the first attempt's checkpoint."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     B = q.batch
     seeds = batch_seeds(seeds, B, dev)
-    segmented = any(v is not None for v in (deadline_s, segment_trips, on_segment))
+    segmented = any(v is not None for v in (deadline_s, segment_trips, checkpoint,
+                                            preempt, on_segment))
     seg_trips = DEFAULT_SEGMENT_TRIPS if segment_trips is None else int(segment_trips)
 
     def remaining():
@@ -235,16 +319,19 @@ def robust_padded_solve_batched(
             return padded_adaptive_solve_batched(qq, ss, **kw, **first)
         return segmented_padded_solve_batched(qq, ss, **kw, **first,
                                               segment_trips=seg_trips,
-                                              deadline_s=budget)
+                                              deadline_s=budget,
+                                              checkpoint_every=checkpoint_every)
 
     first = dict(grams=grams, gram_full=gram_full, x0=x0)
-    if on_segment is not None:
-        first["on_segment"] = on_segment
+    if segmented:
+        first.update(on_segment=on_segment, checkpoint=checkpoint, resume=resume,
+                     preempt=preempt)
     x, st_dev = solve(q, seeds, init_level, budget=remaining(), **first)
     x = x.clone()
     st = {k: st_dev[k].cpu().numpy().copy() for k in _STAT_KEYS}
     trips = int(st_dev["trips"])
     segments = int(st_dev.get("segments", 0))
+    resumed = bool(st_dev.get("resumed", False))
     deadline_hit = bool(st_dev.get("deadline_hit", False))
 
     retries = np.zeros(B, dtype=np.int64)
@@ -314,7 +401,7 @@ def robust_padded_solve_batched(
         retries=torch.as_tensor(retries), fell_back=torch.as_tensor(fell_back),
         converged=torch.as_tensor(np.isin(st["status"], converged_codes)),
         stalled=torch.as_tensor(st["status"] == int(SolveStatus.STALLED)),
-        trips=trips, segments=segments, resumed=False, deadline_hit=deadline_hit)
+        trips=trips, segments=segments, resumed=resumed, deadline_hit=deadline_hit)
     return x, stats
 
 

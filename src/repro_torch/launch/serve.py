@@ -4,7 +4,9 @@ through the port's shape-class bucketing and batched adaptive engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
         [--glm N] [--path N] [--path-points P] \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
-        [--device cuda|cpu] [--deadline-s T] [--segment-trips K]
+        [--device cuda|cpu] [--deadline-s T] [--segment-trips K] [--faulty N]
+    PYTHONPATH=src python -m repro_torch.launch.serve --preempt-after S \\
+        [--requests N] [--device cuda|cpu]
 
 Mirrors ``repro.launch.serve --ridge``; the data is drawn from a seeded
 ``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
@@ -17,13 +19,30 @@ n = 16384 class keeps its SRHT) and ``--dtype`` the sketch pass's precision;
 certificates stay fp32 and record both. ``--deadline-s`` bounds the flush:
 requests that run out of time come back DEADLINE_EXCEEDED with their best
 iterates, the ridge solves running in segments of ``--segment-trips`` loop
-trips. LM serving and meshes are not ported yet.
+trips. ``--faulty N`` adds N NaN-filled requests under ``strict=False``:
+they come back REJECTED without touching their neighbours.
+
+``--preempt-after S`` runs the preemption cycle instead: it starts
+``python -m repro_torch.launch.solve_service`` with a checkpoint directory
+as a subprocess, sends it SIGTERM S seconds after its flush began, requires
+exit code 75 (the in-flight chunk committed), restarts it with
+``--resume``, and requires a clean exit with every answer finite and
+audited against a direct solve. A flush that ends before the signal fails
+the cycle. LM serving and meshes are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,7 +61,7 @@ def _shape(g, dev) -> tuple[int, int]:
 def serve_ridge(args) -> dict:
     svc = SolverService(method="pcg", sketch=args.sketch, compute_dtype=args.dtype,
                         segment_trips=args.segment_trips, ladder_cache=bool(args.path),
-                        device=args.device)
+                        strict=not args.faulty, device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     for _ in range(args.requests):
@@ -51,6 +70,10 @@ def serve_ridge(args) -> dict:
         y = torch.randn((n,), generator=g, device=dev)
         nu = 0.05 + 0.45 * float(torch.rand((), generator=g, device=dev))
         svc.submit(A, y, nu=nu)
+    for _ in range(args.faulty):
+        # quarantined at submit: REJECTED, never packed with the others
+        svc.submit(torch.full((128, 16), float("nan"), device=dev),
+                   torch.zeros(128, device=dev), nu=0.1)
     for _ in range(args.glm):
         A, y = synthetic_logistic_problem(g, *_shape(g, dev))
         nu = 0.1 + 0.4 * float(torch.rand((), generator=g, device=dev))
@@ -85,6 +108,7 @@ def serve_ridge(args) -> dict:
         counts[s.status] = counts.get(s.status, 0) + 1
     print("statuses: " + ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
           + f"; retries={svc.stats['retries']}, fallbacks={svc.stats['fallbacks']}, "
+          f"rejected={svc.stats['rejected']}, "
           f"deadline_exceeded={svc.stats['deadline_exceeded']}, "
           f"segments={svc.stats['segments']}")
     if glm:
@@ -110,11 +134,74 @@ def serve_ridge(args) -> dict:
     return sols
 
 
+# the preempted child: at tol = 0 a chunk iterates until δ̃ is exactly 0
+# (70-80 iterations on this traffic) or the 1200-iteration cap, with no
+# retry and no fallback, so the flush is long enough for the signal to land
+# in it, and the restarted run still ends
+PREEMPT_CHILD_FLAGS = ("--tol", "0", "--max-iters", "1200", "--max-retries", "0",
+                       "--no-fallback", "--segment-trips", "16")
+CHILD_TIMEOUT_S = 600
+
+
+def serve_preempt(args) -> None:
+    """SIGTERM → exit 75 → ``--resume``: the preemptible service end to end,
+    each subprocess under its own time limit."""
+    src = Path(__file__).resolve().parents[2]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(src)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+    ck = tempfile.mkdtemp(prefix="preempt_ck_")
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.solve_service",
+           "--requests", str(args.requests), *PREEMPT_CHILD_FLAGS, "--checkpoint-dir", ck]
+    if args.device:
+        cmd += ["--device", args.device]
+    try:
+        print(f"preemption cycle: checkpoints in {ck}", flush=True)
+        p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        # a child that hangs before its flush is killed, which ends the read
+        watchdog = threading.Timer(CHILD_TIMEOUT_S, p.kill)
+        watchdog.start()
+        lines = []
+        try:
+            for line in p.stdout:        # S counts from the start of the flush
+                lines.append(line)
+                if line.startswith("FLUSH START"):
+                    break
+            time.sleep(args.preempt_after)
+            p.send_signal(signal.SIGTERM)
+            out, _ = p.communicate(timeout=CHILD_TIMEOUT_S)
+        finally:
+            watchdog.cancel()
+            p.kill()
+        print("".join(lines) + out, end="")
+        if p.returncode != 75:
+            raise SystemExit(f"preempted service exited {p.returncode}, expected 75 (a "
+                             f"flush that ends before the signal does not count)")
+        r = subprocess.run(cmd + ["--resume"], env=env, capture_output=True, text=True,
+                           timeout=CHILD_TIMEOUT_S)
+        print(r.stdout, end="")
+        if r.returncode != 0:
+            raise SystemExit(f"resumed service exited {r.returncode}:\n{r.stderr[-2000:]}")
+        for mark in ("ALL_FINITE=1", "AUDIT_OK=1"):
+            if mark not in r.stdout:
+                raise SystemExit(f"resumed service did not report {mark}")
+        print("preemption cycle OK: SIGTERM → exit 75 → --resume → every answer finite "
+              "and audited")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--ridge", action="store_true", required=True,
+    p.add_argument("--ridge", action="store_true",
                    help="serve solver traffic (the only ported workload)")
-    p.add_argument("--requests", type=int, default=24, help="ridge requests")
+    p.add_argument("--preempt-after", type=float, default=None,
+                   help="run the preemption cycle instead: SIGTERM the checkpointing "
+                        "service demo this many seconds into its flush, then resume it")
+    p.add_argument("--requests", type=int, default=None,
+                   help="ridge requests (default 24; 6 under --preempt-after)")
+    p.add_argument("--faulty", type=int, default=0,
+                   help="NaN-filled requests, served with strict=False: REJECTED")
     p.add_argument("--glm", type=int, default=0,
                    help="logistic GLM requests, solved by sketched Newton")
     p.add_argument("--path", type=int, default=0,
@@ -136,7 +223,14 @@ def main(argv=None):
                         "of it return DEADLINE_EXCEEDED with their best iterate")
     p.add_argument("--segment-trips", type=int, default=32,
                    help="loop trips per segment of a deadline-bound solve")
-    serve_ridge(p.parse_args(argv))
+    args = p.parse_args(argv)
+    if args.preempt_after is not None:
+        args.requests = 6 if args.requests is None else args.requests
+        return serve_preempt(args)
+    if not args.ridge:
+        p.error("pass --ridge (solver traffic) or --preempt-after S")
+    args.requests = 24 if args.requests is None else args.requests
+    return serve_ridge(args)
 
 
 if __name__ == "__main__":

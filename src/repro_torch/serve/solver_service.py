@@ -22,6 +22,16 @@ that runs out mid-solve returns its unfinished requests as
 ``DEADLINE_EXCEEDED`` with their best iterates, through the segmented
 driver (``segment_trips`` trips a segment).
 
+Preemption: with ``checkpoint_dir=`` every ridge chunk checkpoints its
+solver state after each segment under ``chunk_<tag>``, a tag derived from
+the chunk's shape class and request ids (the reference's token, so both
+packages name a chunk alike). ``preempt=`` (an ``ft.PreemptionHandler``) is
+polled between segments: when it is set, the in-flight chunk saves and
+``flush`` raises ``core.robust.PreemptedError``. A restarted process that
+replays the same submissions on a service with the same seed finds the
+same directories and resumes each chunk from its last committed segment,
+bitwise the uninterrupted answers (``stats["resumed_chunks"]``).
+
 GLM traffic: ``submit_glm`` takes (A, y, ν) with a ``family`` (logistic,
 poisson, huber[:δ], quadratic) through the same bucketing and packing; a
 packed GLM batch is solved by the sketched-Newton driver (``core.newton``),
@@ -46,8 +56,8 @@ touching A. Solutions record ``cache_hit``.
 Per-slot seeds come from ``_slot_seeds``: a fold of the service seed with
 the slot id (a real slot's request id, or its fingerprint's id under the
 cache; padded slots the reserved ids 2³²−1−slot), so a request's sketch
-does not depend on what it is packed with. Not ported yet: checkpoints and
-preemption (ROADMAP queue 1 item 7) and sharding (item 8).
+does not depend on what it is packed with. Not ported yet: sharding
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import hashlib
 import math
 import time
 from collections import OrderedDict
+from pathlib import Path
 from typing import Iterable, NamedTuple
 
 import torch
@@ -203,8 +214,9 @@ class SolverService:
     on an inadmissible request at submit; ``strict=False`` quarantines it
     into a ``REJECTED`` solution. ``ladder_cache=True`` keeps up to
     ``ladder_cache_size`` λ-free ladder slices (on the device), keyed by
-    content fingerprint. The GLM driver's knobs are the attributes
-    ``newton_iters`` and ``newton_tol``."""
+    content fingerprint. ``checkpoint_dir`` and ``preempt`` make ridge
+    chunks preemptible (module docstring). The GLM driver's knobs are the
+    attributes ``newton_iters`` and ``newton_tol``."""
 
     def __init__(
         self,
@@ -223,6 +235,8 @@ class SolverService:
         fallback: bool = True,
         flush_deadline_s: float | None = None,
         segment_trips: int = 32,
+        checkpoint_dir=None,
+        preempt=None,
         ladder_cache: bool = False,
         ladder_cache_size: int = 64,
         device=None,
@@ -246,6 +260,11 @@ class SolverService:
         # a budget routes a chunk through the segmented driver
         self.flush_deadline_s = flush_deadline_s
         self.segment_trips = segment_trips
+        # per-chunk checkpoints (deterministic directory names, so a
+        # restarted process resumes its chunks) and the preemption flag
+        # polled between segments
+        self.checkpoint_dir = checkpoint_dir
+        self.preempt = preempt
         self._queues: dict[ShapeClass, list[RidgeRequest]] = {
             c: [] for c in self.shape_classes}
         # GLM traffic buckets by (class, family), path traffic by (class,
@@ -549,6 +568,19 @@ class SolverService:
                 out.update(self._solve_glm_chunk(cls, kind, chunk, budget_s=budget))
         return out
 
+    def _chunk_checkpoint(self, cls: ShapeClass, reqs):
+        """A ridge chunk's CheckpointManager under ``checkpoint_dir``, named
+        by a hash of its class and request ids: a restarted process that
+        replays the same submissions finds the same directory."""
+        if self.checkpoint_dir is None:
+            return None
+        from repro_torch.ft.checkpoint import CheckpointManager
+
+        ids = ",".join(str(r.req_id) for r in reqs)
+        token = f"{cls.n}x{cls.d}x{cls.m_max}:ridge:{ids}"
+        tag = hashlib.sha1(token.encode()).hexdigest()[:12]
+        return CheckpointManager(Path(self.checkpoint_dir) / f"chunk_{tag}")
+
     def _expire_chunk(self, cls: ShapeClass, reqs, family=None):
         """DEADLINE_EXCEEDED solutions for a chunk that was not dispatched:
         ``family`` None for ridge, a family name for GLM, ("path", P)."""
@@ -736,10 +768,13 @@ class SolverService:
         sketch = cls.sketch or self.sketch
         cd = cls.compute_dtype or self.compute_dtype
         q, seeds, grams, gfull, skipped = self._pack_cached(cls, reqs, sketch, cd)
-        # a budget routes the solve through the segmented driver; without
-        # one the call, and its numbers, are the monolithic ones
-        seg = ({} if budget_s is None
-               else dict(deadline_s=budget_s, segment_trips=self.segment_trips))
+        # a budget, a checkpoint directory or a preemption flag routes the
+        # solve through the segmented driver; with none the call, and its
+        # numbers, are the monolithic ones
+        seg = {}
+        if budget_s is not None or self.checkpoint_dir is not None or self.preempt is not None:
+            seg = dict(deadline_s=budget_s, segment_trips=self.segment_trips,
+                       checkpoint=self._chunk_checkpoint(cls, reqs), preempt=self.preempt)
         t0 = time.perf_counter()
         x, stats = robust_padded_solve_batched(
             q, seeds, m_max=cls.m_max, method=self.method, sketch=sketch,

@@ -576,3 +576,86 @@ def test_ladder_cache_repeat_bitwise_on_card(dev, sketch):
             assert torch.equal(pa.x, pb.x)
             assert (pa.delta_tilde, pa.m_final, pa.iters, pa.status) == \
                 (pb.delta_tilde, pb.m_final, pb.iters, pb.status)
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("family", ["gaussian", "sjlt", "fwht"])
+@pytest.mark.parametrize("where", ["A", "scale"])
+def test_kernel_nan_isolation(dev, family, compute_dtype, where):
+    """Every kernel leg confines a NaN to its own problem: a NaN row of one
+    problem's A, or a NaN in one problem's row weight (the Gaussian column
+    scale, the SJLT signs) or FWHT row scale, makes that problem's output
+    non-finite, and every other problem's output is bitwise the clean
+    launch's. (An int8 NaN row has undefined codes; its NaN scale carries
+    the poison.)"""
+    B, n, d, m = 5, 1000, 40, 64
+    g = torch.Generator().manual_seed(3)            # inputs built on the CPU
+    A = torch.randn((B, n, d), generator=g).to(dev)
+    w = (torch.rand((B, n), generator=g) + 0.5).to(dev)
+    rows = torch.randint(0, m, (B, n), generator=g, dtype=torch.int32).to(dev)
+    signs = torch.where(torch.rand((B, n), generator=g) < 0.5, -1.0, 1.0).to(dev)
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, dtype=torch.int64).to(dev)
+    bad = 3
+
+    def run(A, w):
+        if family == "gaussian":
+            return ops.gaussian_sa(A, seeds, m, row_weights=w, compute_dtype=compute_dtype)
+        if family == "sjlt":
+            return ops.sjlt_apply_batched(A, rows, signs, m, row_weights=w,
+                                          compute_dtype=compute_dtype)
+        return ops.fwht_cols(torch.nn.functional.pad(A, (0, 0, 0, 1024 - n)),
+                             row_scale=torch.nn.functional.pad(signs * w, (0, 1024 - n)),
+                             compute_dtype=compute_dtype)
+
+    A_bad, w_bad = A.clone(), w.clone()
+    if where == "A":
+        A_bad[bad, 17, :] = float("nan")
+    else:
+        w_bad[bad, 17] = float("nan")
+    before = dict(ops.LAUNCHES)
+    clean, out = run(A, w), run(A_bad, w_bad)
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES[k] - before[k] for k in before) >= 2
+    assert not bool(torch.isfinite(out[bad]).all())
+    keep = [i for i in range(B) if i != bad]
+    assert bool(torch.isfinite(clean).all())
+    assert torch.equal(out[keep], clean[keep])
+
+
+@pytest.mark.parametrize("sketch,compute_dtype", [("gaussian", "fp32"), ("srht", "fp32"),
+                                                  ("sjlt", "int8")])
+def test_preempt_resume_bitwise_on_card(dev, tmp_path, sketch, compute_dtype):
+    """The segmented driver on the card, preempted at segment 2 with its
+    state checkpointed, resumes from the checkpoint to answers bitwise an
+    uninterrupted segmented run's, x and every certificate."""
+    from repro_torch.core.quadratic import from_least_squares_batch
+    from repro_torch.core.robust import PreemptedError, segmented_padded_solve_batched
+
+    B, n, d = 4, 1024, 64
+    g = torch.Generator().manual_seed(2)
+    U, _ = torch.linalg.qr(torch.randn((B, n, d), generator=g))
+    A = (U * (0.9 ** torch.arange(d))[None, None, :]).contiguous().to(dev)
+    Y = torch.randn((B, n), generator=g).to(dev)
+    q = from_least_squares_batch(A, Y, torch.tensor([0.1, 0.03, 0.01, 0.003], device=dev))
+    seeds = torch.tensor([21, 22, 23, 24], dtype=torch.int64, device=dev)
+    kw = dict(m_max=128, sketch=sketch, compute_dtype=compute_dtype, segment_trips=4,
+              device=dev)
+    x_ref, s_ref = segmented_padded_solve_batched(q, seeds, **kw)
+    assert s_ref["segments"] >= 3
+
+    class Stop:
+        polls = 0
+
+        @property
+        def should_stop(self):
+            self.polls += 1
+            return self.polls > 2
+
+    with pytest.raises(PreemptedError) as ei:
+        segmented_padded_solve_batched(q, seeds, checkpoint=str(tmp_path), preempt=Stop(), **kw)
+    assert ei.value.segment == 2
+    x, s = segmented_padded_solve_batched(q, seeds, checkpoint=str(tmp_path), **kw)
+    assert s["resumed"] and s["segments"] == s_ref["segments"] - 2
+    assert torch.equal(x, x_ref)
+    for k in ("status", "m_final", "iters", "dtilde", "level", "doublings", "trips"):
+        assert torch.equal(s[k], s_ref[k]), k

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the JAX package, and the default device is CUDA, never a
+imports JAX, the JAX package or ``ml_dtypes`` (the card's machine has none),
+and the default device is CUDA, never a
 silent fall back to the CPU."""
 
 import ast
@@ -25,7 +26,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -40,7 +41,7 @@ def test_port_modules_import_without_jax_loaded():
             for p in PORT_FILES if p.name != "chip_smoke.py"]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
-            + "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n")
+            + "assert not {'jax', 'repro', 'ml_dtypes'} & set(sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
 

@@ -290,16 +290,19 @@ def test_retry_out_of_time_keeps_previous_verdict(batch, monkeypatch):
 
 
 def test_checkpoint_and_preempt_refused(batch):
+    """What the drivers refuse: a segment of no trips, a checkpoint that is
+    neither a manager nor a path, and any segment once the preemption flag
+    is up (PreemptedError at segment 0, with nothing to save)."""
     with pytest.raises(ValueError, match="segment_trips"):
         trb.robust_padded_solve_batched(batch["qt"], batch["seeds"], m_max=M_MAX,
                                         segment_trips=0, device="cpu")
-    for kw in ({"checkpoint": "ckpt"}, {"preempt": object()}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            trb.robust_padded_solve_batched(batch["qt"], batch["seeds"], m_max=M_MAX,
-                                            device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            trb.segmented_padded_solve_batched(batch["qt"], batch["seeds"], m_max=M_MAX,
-                                               device="cpu", **kw)
+    stop = types.SimpleNamespace(should_stop=True)
+    for solve in (trb.robust_padded_solve_batched, trb.segmented_padded_solve_batched):
+        with pytest.raises(TypeError, match="CheckpointManager or a path"):
+            solve(batch["qt"], batch["seeds"], m_max=M_MAX, checkpoint=3, device="cpu")
+        with pytest.raises(trb.PreemptedError, match="segment 0") as ei:
+            solve(batch["qt"], batch["seeds"], m_max=M_MAX, preempt=stop, device="cpu")
+        assert ei.value.checkpoint_dir is None
 
 
 # -- the service ---------------------------------------------------------
