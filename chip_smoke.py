@@ -81,7 +81,26 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    non-finite and every other problem's bitwise the clean launch's. The
    launch counts are set to 0 before (a) and before (c) and read after
    each;
-8. summary: one ``{"kernels": [...]}`` line, then the device line last.
+8. the paper's solvers and the sharded pass: (a) adaptive IHS and PCG
+   (``core.adaptive``, Alg. 4.1/4.2) on fig1's scaled problem (n = 8192,
+   d = 1024, σ_j = 0.995^(7000 j/d), ν ∈ {1e-1, 1e-2, 1e-3}, tol 1e-8) in
+   sjlt, srht and gaussian, each answer within the ridge gate of an fp64
+   direct solve, printed with m_final beside d_e, iterations, doublings,
+   wall time and the fp32 Cholesky direct solve's time; each final sketch's
+   ``apply_t`` checked as the adjoint of ``apply``; the launches per Pallas
+   body, of which the B = 1 SJLT (sjlt.py:72), the unscaled FWHT
+   (fwht.py:30) and the shared-A Gaussian must be nonzero, and those three
+   legs held against their plain versions at the path's shapes; (b) 4 gloo
+   ranks on the one card (``launch.mesh.run_ranks``): ``shard_level_grams``
+   at the top class (B = 16, n = 4096, d = 256, m_max = 512) in
+   gaussian/fp32, sjlt/int8 and srht/bf16 against the one-process
+   ``BlockEmulationProvider(inner, 4)``, the per-shard form and
+   ``ShardLadderCache.from_mesh`` bitwise ``from_emulation``, the
+   all-reduce's bytes and ms, and 16 requests of the pod-scale class
+   (65536, 256, 512, srht) through the sharded service under the ridge
+   gate; (c) a one-rank NCCL group, its pass bitwise the one-device
+   provider's;
+9. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -513,17 +532,9 @@ DECAY = 0.95
 def _request(g, dev, n_rng, d_rng):
     """A = U·diag(0.95^i)·Vᵀ with orthonormal U, V (ill-conditioned, so the
     ladders climb), y ~ N(0, I), ν log-uniform in [1e-3, 1e-1]."""
-    import torch
+    from repro_torch.launch.sharded import ridge_request
 
-    n = int(torch.randint(n_rng[0], n_rng[1] + 1, (), generator=g, device=dev))
-    d = int(torch.randint(d_rng[0], d_rng[1] + 1, (), generator=g, device=dev))
-    U, _ = torch.linalg.qr(torch.randn((n, d), generator=g, device=dev))
-    V, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev))
-    sv = DECAY ** torch.arange(d, device=dev, dtype=torch.float32)
-    A = (U * sv[None, :]) @ V.T
-    y = torch.randn((n,), generator=g, device=dev)
-    nu = 10.0 ** (-3.0 + 2.0 * float(torch.rand((), generator=g, device=dev)))
-    return A, y, nu
+    return ridge_request(g, dev, n_rng, d_rng, DECAY)
 
 
 def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
@@ -1303,6 +1314,286 @@ def phase_ft(smi, dev="cuda", seed=40):
     return launches
 
 
+# phase 8 (a): fig1's scaled problem (benchmarks/fig1_synthetic.py: n = 8192,
+# d = 1024, σ_j = decay^j with decay = 0.995^(7000/d), y ~ N(0, I)), its ν
+# grid, methods and tolerance; the three families of the paper
+PAPER_N, PAPER_D, PAPER_NUS = 8192, 1024, (1e-1, 1e-2, 1e-3)
+PAPER_METHODS, PAPER_SKETCHES = ("ihs", "pcg"), ("sjlt", "srht", "gaussian")
+PAPER_TOL, PAPER_MAX_ITERS = 1e-8, 200
+# phase 8 (b): K gloo ranks on the one card, the top class at B = 16, and
+# the pod-scale class's traffic (n in (16384, 65536], d ≤ 256)
+SHARD_K = 4
+SHARD_PASSES = (("gaussian", "fp32"), ("sjlt", "int8"), ("srht", "bf16"))
+# the summed all-reduce adds the K shard stacks in gloo's order, not in shard
+# order: fp32 sums of K terms reordered, a few ulp of the Grams' scale
+SHARD_REL_TOL = 1e-6
+POD_TRAFFIC = dict(seed=80, count=16, n_range=(40000, 65536), d_range=(128, 256))
+
+
+def _paper_problem(dev, nu, seed=0):
+    """fig1's scaled problem in the port: A = U·diag(σ)·Vᵀ from QRs of
+    Gaussian blocks drawn by a seeded generator on the card."""
+    import torch
+
+    from repro_torch.core import exp_decay_singular_values
+    from repro_torch.core.quadratic import from_least_squares
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sv = exp_decay_singular_values(PAPER_D, 0.995 ** (7000.0 / PAPER_D), device=dev)
+    U, _ = torch.linalg.qr(torch.randn((PAPER_N, PAPER_D), generator=g, device=dev))
+    V, _ = torch.linalg.qr(torch.randn((PAPER_D, PAPER_D), generator=g, device=dev))
+    A = ((U * sv[None, :]) @ V.T).contiguous()
+    y = torch.randn((PAPER_N,), generator=g, device=dev)
+    return from_least_squares(A, y, nu), sv, y
+
+
+def phase_paper(smi):
+    """Phase 8 (a): the paper's adaptive IHS and PCG (``core.adaptive``) at
+    fig1's size on the card in every family, each answer against an fp64
+    direct solve; then each single-problem kernel leg the path launched,
+    held against its plain version at the path's shapes. Returns (the
+    launch counts per Pallas body over the solves, the kernels-line rows)."""
+    import math
+
+    import torch
+
+    from repro_torch.core import AdaptiveConfig, adaptive_solve, effective_dimension, make_sketch
+    from repro_torch.core.level_grams import fold_seeds
+    from repro_torch.core.quadratic import direct_solve
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sjlt as ksj
+    from repro_torch.kernels.fwht import fwht_ref, hadamard_dense
+    from repro_torch.kernels.gaussian_gram import (
+        gaussian_s_dense,
+        gaussian_sa_cuda,
+        gaussian_sa_ref,
+    )
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    per_leg, last = {}, {}
+    worst = 0.0
+    for nu in PAPER_NUS:
+        q, sv, y = _paper_problem(dev, nu)
+        d_e = float(effective_dimension(sv, nu))
+        H64 = q.A.double().T @ q.A.double() + nu ** 2 * torch.eye(PAPER_D, dtype=torch.float64,
+                                                                   device=dev)
+        x64 = torch.linalg.solve(H64, q.A.double().T @ y.double())
+        ev = torch.linalg.eigvalsh(H64)
+        kappa = float(ev[-1] / ev[0])
+        # the fp32 Cholesky direct solve (AᵀA, ~17 GFLOP, and a 1024² factor)
+        t_direct = time_ms(lambda: direct_solve(q), reps=5)
+        for kind in PAPER_SKETCHES:
+            for method in PAPER_METHODS:
+                sketches = []
+
+                def sampler(phase, m, kind=kind, sketches=sketches):
+                    sketches.append(make_sketch(kind, m, q.n, fold_seeds(
+                        torch.tensor(1, device=dev), phase), device=dev))
+                    return sketches[-1]
+                before = dict(ops.BODY_LAUNCHES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = adaptive_solve(q, AdaptiveConfig(method=method, sketch=kind,
+                                                       max_iters=PAPER_MAX_ITERS, tol=PAPER_TOL),
+                                     sampler=sampler, device=dev)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                legs = {k: ops.BODY_LAUNCHES[k] - before[k] for k in ops.BODY_LAUNCHES
+                        if ops.BODY_LAUNCHES[k] != before[k]}
+                e = res.x.double() - x64
+                err = float(torch.sqrt((e @ H64 @ e) / (x64 @ H64 @ x64)))
+                gate = max(SOLVE_REL_TOL, FP32_UNIT * kappa * max(res.iters, 1) ** 0.5)
+                worst = max(worst, err / gate)
+                print(f"[paper] ν={nu:g} {kind}/{method}: m_final {res.m_final} "
+                      f"(d_e {d_e:.1f}, m_final/d_e {res.m_final / d_e:.2f}), "
+                      f"{res.iters} iterations, {res.n_doublings} doublings, "
+                      f"{wall:.2f} ms wall ({sum(res.resketch_times) * 1e3:.2f} ms in "
+                      f"{len(res.resketch_times)} sketch+factorize, median iteration "
+                      f"{sorted(res.iter_times)[len(res.iter_times) // 2] * 1e3:.3f} ms), "
+                      f"fp32 Cholesky direct {t_direct:.3f} ms; error {err:.3e} in the "
+                      f"H-norm (gate {gate:.3e}, κ(H) {kappa:.3e}); launches {legs}")
+                if not (math.isfinite(err) and err <= gate):
+                    raise SystemExit(f"chip_smoke: paper-literal {kind}/{method} at ν={nu:g} "
+                                     f"misses the ridge gate: {err:.3e} > {gate:.3e}")
+                for k, v in legs.items():
+                    per_leg[k] = per_leg.get(k, 0) + v
+                # the final sketch's adjoint check: ⟨A, Sᵀ(SA)⟩ = ‖SA‖², through
+                # apply_t (the SRHT's unscaled FWHT)
+                sk = sketches[-1] if sketches else None      # every sketch has m < n
+                if sk is not None:
+                    SA = sk.apply(q.A)
+                    lhs = float(torch.sum(q.A.double() * sk.apply_t(SA).double()))
+                    rhs = float(torch.sum(SA.double() ** 2))
+                    if abs(lhs - rhs) > 1e-4 * abs(rhs):
+                        raise SystemExit(f"chip_smoke: {kind} apply_t is not the adjoint of "
+                                         f"apply: {lhs} against {rhs}")
+                    last[kind] = sk
+        del H64, x64
+    launches = dict(ops.BODY_LAUNCHES)
+    print(f"[paper] launches per Pallas body over phase 8 (a): {launches}; worst answer "
+          f"{worst:.3f} of its gate")
+    missing = [k for k in ("_gauss_sa_kernel", "_fwht_kernel", "_fwht_kernel_scaled",
+                           "_sjlt_kernel") if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: the paper-literal path never launched {missing}")
+
+    # the single-problem legs at the path's shapes: A (8192, 1024) and the
+    # largest final sketch below n of each family
+    q, _, _ = _paper_problem(dev, PAPER_NUS[-1])
+    A, n, d = q.A, PAPER_N, PAPER_D
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    m = last["gaussian"].m
+    seeds = last["gaussian"].data["seed"].reshape(1)
+    S = gaussian_s_dense(seeds, m, n)[0]        # the yardstick's S, built outside the timing
+    recs = [_measure(f"gaussian_sa single problem, shared A (m={m})",
+                     lambda: gaussian_sa_cuda(A, seeds, m),
+                     lambda: gaussian_sa_ref(A, seeds, m),
+                     4 * n * d + 4 * m * d, 2.0 * m * n * d, GAUSSIAN_REL_TOL,
+                     library=lambda: torch.mm(S, A))]
+    del S
+    rows.append(_row("gaussian_sa (B = 1, shared A)", src + "gaussian_sa.cu",
+                     "src/repro/kernels/gaussian_gram.py:210", recs,
+                     launches=launches["_gauss_sa_kernel"]))
+    sr = last["srht"]
+    Z = torch.zeros((n, d), device=dev)
+    Z[sr.data["rows"]] = sr.apply(A)
+    H = hadamard_dense(n, dev)
+    recs = [_measure(f"fwht unscaled (srht apply_t, n={n}, d={d})",
+                     lambda: ops.fwht(Z), lambda: fwht_ref(Z), 8 * n * d,
+                     float(n * int(math.log2(n)) * d), FWHT_REL_TOL,
+                     library=lambda: H @ Z)]
+    del H
+    rows.append(_row("fwht (unscaled)", src + "fwht.cu", "src/repro/kernels/fwht.py:30", recs,
+                     launches=launches["_fwht_kernel"]))
+    sj = last["sjlt"]
+    M = sj.m
+    tgt, sg = sj.data["rows"][0].to(torch.int32), sj.data["signs"][0]
+
+    def index_add():
+        return torch.zeros((M, d), device=dev).index_add_(0, tgt.long(), A * sg[:, None])
+    recs = [_measure(f"sjlt single problem (m={M})", lambda: ksj.sjlt_cuda(A, tgt, sg, M),
+                     lambda: ksj.sjlt_ref(A, tgt, sg, M), 4 * n * d + 8 * n + 4 * M * d,
+                     2.0 * n * d, SJLT_REL_TOL, library=index_add)]
+    rows.append(_row("sjlt (B = 1)", src + "sjlt.cu", "src/repro/kernels/sjlt.py:72", recs,
+                     launches=launches["_sjlt_kernel"]))
+    del q, A, Z
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_sharded(smi):
+    """Phase 8 (b): K gloo ranks on the one card. The sharded one-touch pass
+    at the top class in three (family, mode)s against the one-process block
+    emulation (summed: within SHARD_REL_TOL; per shard and ``from_mesh``:
+    bitwise), the all-reduce's payload and time, and the pod-scale class
+    through the sharded service under the ridge gate."""
+    import torch
+
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.distributed import ShardLadderCache
+    from repro_torch.core.level_grams import BlockEmulationProvider
+    from repro_torch.core.quadratic import Quadratic
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharded import ridge_requests
+
+    dev = torch.device("cuda")
+    B, n, d, m_max = 16, 4096, 256, 512
+    ladder = doubling_ladder(m_max)
+    g = torch.Generator(device=dev).manual_seed(70)
+    A = torch.stack([r[0] for r in ridge_requests(71, B, (n, n), (d, d), dev)])
+    q = Quadratic(A=A, b=torch.randn((B, d), generator=g, device=dev),
+                  nu=torch.full((B,), 1e-2, device=dev), lam_diag=torch.ones((B, d), device=dev),
+                  batched=True)
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
+    q_cpu = Quadratic(A=A.cpu(), b=q.b.cpu(), nu=q.nu.cpu(), lam_diag=q.lam_diag.cpu(),
+                      batched=True)
+    tasks = [(f"{f}/{c}", "pass", dict(q=q_cpu, seeds=seeds.cpu(), ladder=ladder, sketch=f,
+                                       compute_dtype=c, time_reps=5 if f == "gaussian" else 0))
+             for f, c in SHARD_PASSES]
+    tasks.append(("pod", "service", dict(requests=POD_TRAFFIC, service=dict(batch_size=16))))
+    t0 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", SHARD_K,
+                    {"device": "cuda", "tasks": tasks}, backend="gloo", device="cuda",
+                    timeout=600)
+    print(f"[sharded] {SHARD_K} gloo ranks on one card ran their tasks in "
+          f"{time.perf_counter() - t0:.1f} s (each process's start included)")
+    for f, c in SHARD_PASSES:
+        prov = BlockEmulationProvider(f, SHARD_K)
+        want = prov.level_grams(prov.sample(seeds, m_max, n), q, ladder, compute_dtype=c).cpu()
+        emu = ShardLadderCache.from_emulation(f, seeds, q, ladder, SHARD_K, compute_dtype=c)
+        got = res[0][f"{f}/{c}"]
+        rel = float((got["grams"] - want).abs().max() / want.abs().max())
+        same = all(torch.equal(r[f"{f}/{c}"]["grams"], got["grams"]) for r in res)
+        per = torch.equal(got["per_shard"], emu.shard_grams.cpu())
+        tot = torch.equal(got["cache_total"], emu.total().cpu())
+        print(f"[sharded] shard_level_grams {f}/{c}: rel err {rel:.3e} against the "
+              f"one-process BlockEmulationProvider (tolerance {SHARD_REL_TOL:g}), replicated "
+              f"bitwise on every rank {same}; per-shard form bitwise {per}; from_mesh total "
+              f"bitwise from_emulation {tot}")
+        if not (rel <= SHARD_REL_TOL and same and per and tot):
+            raise SystemExit(f"chip_smoke: the sharded pass {f}/{c} disagrees with the "
+                             f"block emulation")
+        if "allreduce_ms" in got:
+            ms = [r[f"{f}/{c}"]["allreduce_ms"] for r in res]
+            print(f"[sharded] all-reduce of the (L, B, d, d) = ({len(ladder)}, {B}, {d}, {d}) "
+                  f"fp32 stack: {got['allreduce_bytes']} bytes, {min(ms):.3f}-{max(ms):.3f} "
+                  f"ms per rank (median of 5, gloo, {SHARD_K} ranks sharing the card)")
+    pod = res[0]["pod"]
+    reqs = ridge_requests(device=dev, **POD_TRAFFIC)
+    worst = 0.0
+    for (A_r, y_r, nu), a in zip(reqs, pod["answers"]):
+        err, tol = _ridge_gate(a["x"].to(dev), A_r, y_r, nu, a["iters"])
+        worst = max(worst, err / tol)
+        if a["shape_class"][0] != 65536 or a["status"] != "OK" or not err <= tol:
+            raise SystemExit(f"chip_smoke: sharded pod-scale answer {a['status']} in class "
+                             f"{a['shape_class']}, error {err:.3e} (gate {tol:.3e})")
+    same = all(torch.equal(a["x"], b["x"]) for r in res[1:]
+               for a, b in zip(pod["answers"], r["pod"]["answers"]))
+    m = sorted(a["m_final"] for a in pod["answers"])
+    print(f"[sharded] pod-scale class (65536, 256, 512, srht): {len(reqs)} requests OK on "
+          f"{SHARD_K} ranks in {pod['wall_s'] * 1e3:.1f} ms of flush ({pod['stats']['batches']} "
+          f"batch), m_final {m[0]}/{m[len(m) // 2]}/{m[-1]}, worst answer {worst:.3f} of its "
+          f"ridge gate; every rank the same answers {same}")
+    if not same:
+        raise SystemExit("chip_smoke: the sharded service's ranks disagree")
+    del q, A, reqs
+    torch.cuda.empty_cache()
+
+
+def phase_nccl():
+    """Phase 8 (c): a one-rank NCCL group: the sharded pass is bitwise the
+    one-device provider under fold_seeds(seed, 0)."""
+    import torch
+
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.level_grams import fold_seeds, get_provider
+    from repro_torch.core.quadratic import Quadratic
+    from repro_torch.launch.mesh import run_ranks
+
+    dev = torch.device("cuda")
+    B, n, d, m_max = 16, 4096, 256, 512
+    g = torch.Generator(device=dev).manual_seed(90)
+    q = Quadratic(A=torch.randn((B, n, d), generator=g, device=dev) / n ** 0.5,
+                  b=torch.zeros((B, d), device=dev), nu=torch.ones(B, device=dev),
+                  lam_diag=torch.ones((B, d), device=dev), batched=True)
+    seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
+    ladder = doubling_ladder(m_max)
+    q_cpu = Quadratic(A=q.A.cpu(), b=q.b.cpu(), nu=q.nu.cpu(), lam_diag=q.lam_diag.cpu(),
+                      batched=True)
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", 1, {"device": "cuda", "tasks": [
+        ("g", "pass", dict(q=q_cpu, seeds=seeds.cpu(), ladder=ladder, sketch="gaussian",
+                           compute_dtype="fp32"))]}, backend="nccl", device="cuda", timeout=300)
+    prov = get_provider("gaussian")
+    want = prov.level_grams(prov.sample(fold_seeds(seeds, 0), m_max, n), q, ladder).cpu()
+    ok = torch.equal(res[0]["g"]["grams"], want)
+    print(f"[nccl] one-rank NCCL group: shard_level_grams gaussian/fp32 bitwise the "
+          f"one-device provider {ok}")
+    if not ok:
+        raise SystemExit("chip_smoke: the one-rank NCCL pass is not the one-device pass")
+
+
 def main() -> int:
     import torch
 
@@ -1351,6 +1642,13 @@ def main() -> int:
     lap("phase 7 (preemption, chaos and NaN isolation)")
     for r in rows:
         r["launches"] = launches[r["name"]]
+    _, paper_rows = phase_paper(smi)
+    lap("phase 8 (a) (paper-literal solves)")
+    phase_sharded(smi)
+    lap("phase 8 (b) (sharded pass and service, gloo ranks)")
+    phase_nccl()
+    lap("phase 8 (c) (one-rank NCCL group)")
+    rows += paper_rows
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

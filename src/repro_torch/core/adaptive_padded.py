@@ -96,6 +96,8 @@ class PaddedPrecompute(NamedTuple):
     invalid_levels: torch.Tensor  # (B,) count of skipped levels
     G_full: torch.Tensor | None   # AᵀA, (d, d) shared or (B, d, d); None ⇒
                                   # matrix-free hvp
+    mesh: object = None           # row-sharded (core.distributed): the
+                                  # matrix-free hvp all-reduces AᵀAv
 
 
 def _apply_pinv(pinv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -148,9 +150,16 @@ def _valid_level_remap(level_ok: torch.Tensor):
     return remap, level_ok.any(dim=0)
 
 
-def _compute_ladder_grams(q: Quadratic, seeds, *, m_max, sketch, compute_dtype):
-    """(L, B, d, d) ladder-level Grams — the ONE touch of A."""
+def _compute_ladder_grams(q: Quadratic, seeds, *, m_max, sketch, compute_dtype,
+                          mesh=None):
+    """(L, B, d, d) ladder-level Grams — the ONE touch of A (under ``mesh``,
+    of this rank's block, and one all-reduce)."""
     provider = get_provider(sketch)
+    if mesh is not None:
+        from .distributed import shard_level_grams
+
+        return shard_level_grams(provider, seeds, q, doubling_ladder(m_max), mesh,
+                                 compute_dtype=compute_dtype)
     data = provider.sample(seeds, m_max, q.n)
     return provider.level_grams(data, q, doubling_ladder(m_max),
                                 compute_dtype=compute_dtype)
@@ -179,26 +188,39 @@ def _ladder_tables(q: Quadratic, grams: torch.Tensor, *, guards: bool):
     return pinvs, remap, any_valid, gram_poisoned, invalid_levels
 
 
-def _gram_precompute(q: Quadratic, gram_hvp: bool | None):
+def _gram_precompute(q: Quadratic, gram_hvp: bool | None, mesh=None):
     """The optional true Gram behind ``gram_hvp`` (None = auto: on when
-    d ≤ min(n, 1024)): AᵀA (d, d) shared or (B, d, d), AᵀWA (B, d, d) for a
-    weighted problem, or None for the matrix-free hvp (``q.hvp``, which
-    weights the (B, n) intermediate)."""
+    d ≤ min(n, 1024), n the global row count): AᵀA (d, d) shared or
+    (B, d, d), AᵀWA (B, d, d) for a weighted problem, or None for the
+    matrix-free hvp (``q.hvp``, which weights the (B, n) intermediate).
+    Under ``mesh`` q is this rank's block: its Gram plus one all-reduce."""
+    n = q.n
+    if mesh is not None:
+        from .distributed import all_reduce_sum, n_data_shards
+
+        n *= n_data_shards(mesh)
     if gram_hvp is None:
-        gram_hvp = q.d <= min(q.n, 1024)
+        gram_hvp = q.d <= min(n, 1024)
     if not gram_hvp:
         return None
     if q.row_weights is not None:
         # AᵀWA per problem (even with shared A) through the chunked Gram:
         # never an (n, d)-sized weighted copy of A
-        return weighted_gram(q.A, q.row_weights)
-    if q.shared_A:
-        return q.A.T @ q.A
-    return torch.bmm(q.A.transpose(1, 2), q.A)
+        G = weighted_gram(q.A, q.row_weights)
+    elif q.shared_A:
+        G = q.A.T @ q.A
+    else:
+        G = torch.bmm(q.A.transpose(1, 2), q.A)
+    return G if mesh is None else all_reduce_sum(G, mesh)
 
 
-def _hvp_fn(q: Quadratic, G_full):
-    """H·v under the precomputed Gram (or q's matrix-free hvp)."""
+def _hvp_fn(q: Quadratic, G_full, mesh=None):
+    """H·v under the precomputed Gram, or matrix-free: q's hvp, or under
+    ``mesh`` this block's AᵀWAv all-reduced (the loop's one collective)."""
+    if G_full is None and mesh is not None:
+        from .distributed import all_reduce_sum
+
+        return lambda v: all_reduce_sum(q.gram_vp(v), mesh) + q._reg(v)
     if G_full is None:
         return q.hvp
     reg = (q.nu ** 2)[:, None] * q.lam_diag
@@ -211,7 +233,7 @@ def _init_padded_state(q: Quadratic, pre: PaddedPrecompute, init_level, tol,
                        x0=None) -> PaddedState:
     B, d, dev = q.batch, q.d, q.device
     top = pre.remap.shape[0] - 1
-    hvp = _hvp_fn(q, pre.G_full)
+    hvp = _hvp_fn(q, pre.G_full, pre.mesh)
     if init_level is None:
         lvl0 = torch.zeros(B, dtype=torch.int64, device=dev)
     else:
@@ -340,7 +362,7 @@ def _run_segment(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
                  trip_limit: int, *, method: str, max_iters: int, rho: float,
                  tol, guards: bool) -> PaddedState:
     """The adaptive loop, up to ``trip_limit`` trips in total."""
-    hvp = _hvp_fn(q, pre.G_full)
+    hvp = _hvp_fn(q, pre.G_full, pre.mesh)
     top = pre.remap.shape[0] - 1
     t0 = int(st.trips)
     for k in range(t0, trip_limit):
@@ -401,6 +423,7 @@ def prepare_padded_solve(
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
     x0: torch.Tensor | None = None,
+    mesh=None,
     device=None,
 ):
     """Everything before the loop: the one-touch ladder pass (or ``grams=``
@@ -409,8 +432,11 @@ def prepare_padded_solve(
     the origin or at a warm start ``x0`` (B, d). A weighted problem
     (``q.row_weights`` (B, n)) has its weights folded into the sketch pass
     and its true Gram formed as AᵀWA by n-chunks: no (B, n, d) weighted copy
-    of A. Returns ``(PaddedPrecompute, PaddedState)``; the precompute is
-    deterministic given (q, seeds)."""
+    of A. Under ``mesh`` (a ``DeviceMesh``, ``core.distributed``) q is this
+    rank's row block: the ladder pass and the true Gram end in one
+    all-reduce each, and everything after them is replicated. Returns
+    ``(PaddedPrecompute, PaddedState)``; the precompute is deterministic
+    given (q, seeds)."""
     if not q.batched:
         raise ValueError("prepare_padded_solve expects a batched Quadratic")
     dev = resolve_device(device)
@@ -422,15 +448,15 @@ def prepare_padded_solve(
     seeds = batch_seeds(seeds, q.batch, dev)
     if grams is None:
         grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype, mesh=mesh)
     pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
         q, grams, guards=guards)
     if gram_full is None:
-        gram_full = _gram_precompute(q, gram_hvp)
+        gram_full = _gram_precompute(q, gram_hvp, mesh)
     pre = PaddedPrecompute(
         pinvs=pinvs, remap=remap, any_valid=any_valid,
         gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
-        G_full=gram_full)
+        G_full=gram_full, mesh=mesh)
     return pre, _init_padded_state(q, pre, init_level, tol, x0=x0)
 
 
@@ -486,7 +512,7 @@ def reprecondition_padded(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
         pinvs=pinvs, remap=remap, any_valid=any_valid,
         gram_poisoned=pre.gram_poisoned | gram_poisoned2,
         invalid_levels=torch.maximum(pre.invalid_levels, invalid2),
-        G_full=pre.G_full)
+        G_full=pre.G_full, mesh=pre.mesh)
     active = ~st.done
     pinv_new = _gather_pinv(pinvs, st.level)
     res = -st.grad                                 # b − Hx at the current x
@@ -528,9 +554,11 @@ def padded_adaptive_solve_batched(
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
     x0: torch.Tensor | None = None,
+    mesh=None,
     device=None,
 ):
-    """Adaptive solve of a batch of B problems on one device.
+    """Adaptive solve of a batch of B problems on one device, or row-sharded
+    over ``mesh`` (q then this rank's block; ``prepare_padded_solve``).
 
     ``q`` is a batched ``Quadratic`` with per-problem A (B, n, d) or shared
     A (n, d); ``seeds`` is a (B,) int64 tensor of uint32 seeds (problem b's
@@ -556,7 +584,7 @@ def padded_adaptive_solve_batched(
     pre, st = prepare_padded_solve(
         q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
         init_level=init_level, guards=guards, compute_dtype=compute_dtype,
-        tol=tol, grams=grams, gram_full=gram_full, x0=x0, device=device)
+        tol=tol, grams=grams, gram_full=gram_full, x0=x0, mesh=mesh, device=device)
     st = padded_solve_segment(q, pre, st, padded_trip_cap(m_max, max_iters),
                               method=method, max_iters=max_iters, rho=rho,
                               tol=tol, guards=guards, device=device)
@@ -571,6 +599,7 @@ def prepare_path_ladder(
     sketch: str = "gaussian",
     gram_hvp: bool | None = None,
     compute_dtype: str = "fp32",
+    mesh=None,
     device=None,
 ):
     """The λ-free precompute of a whole regularization path: the one-touch
@@ -578,7 +607,8 @@ def prepare_path_ladder(
     shift enters only at factorization), so the returned ``(grams,
     gram_full)`` serves every ν of a grid through ``grams=`` /
     ``gram_full=``; it is also the unit the service's ladder cache stores.
-    ``gram_full`` is None when the hvp stays matrix-free."""
+    ``gram_full`` is None when the hvp stays matrix-free. Under ``mesh`` q
+    is this rank's block and both come back all-reduced, replicated."""
     if not q.batched:
         raise ValueError("prepare_path_ladder expects a batched Quadratic")
     dev = resolve_device(device)
@@ -587,8 +617,9 @@ def prepare_path_ladder(
     check_fp32_matmul()
     seeds = batch_seeds(seeds, q.batch, dev)
     grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
-                                  compute_dtype=canonical_compute_dtype(compute_dtype))
-    return grams, _gram_precompute(q, gram_hvp)
+                                  compute_dtype=canonical_compute_dtype(compute_dtype),
+                                  mesh=mesh)
+    return grams, _gram_precompute(q, gram_hvp, mesh)
 
 
 def path_nus(nus, B: int, dtype, device) -> torch.Tensor:
@@ -617,9 +648,11 @@ def padded_path_solve_batched(
     guards: bool = True,
     compute_dtype: str = "fp32",
     warm_start: bool = True,
+    mesh=None,
     device=None,
 ):
-    """A regularization path: the whole ν grid off ONE sketch pass.
+    """A regularization path: the whole ν grid off ONE sketch pass (under
+    ``mesh``, of this rank's row block, all-reduced once).
 
     ``q`` is a batched Quadratic whose own ν is ignored; ``nus`` is the grid,
     (P,) shared by the batch or (P, B) per problem. The ladder Grams and the
@@ -639,7 +672,7 @@ def padded_path_solve_batched(
     seeds = batch_seeds(seeds, q.batch, dev)
     grams, gram_full = prepare_path_ladder(
         q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
-        compute_dtype=compute_dtype, device=dev)
+        compute_dtype=compute_dtype, mesh=mesh, device=dev)
     xs, per_point = [], []
     x_prev, lvl = None, init_level
     for p in range(nus.shape[0]):
@@ -648,7 +681,7 @@ def padded_path_solve_batched(
             q_p, seeds, m_max=m_max, method=method, sketch=sketch,
             max_iters=max_iters, rho=rho, tol=tol, gram_hvp=gram_hvp,
             init_level=lvl, guards=guards, compute_dtype=compute_dtype,
-            grams=grams, gram_full=gram_full, x0=x_prev, device=dev)
+            grams=grams, gram_full=gram_full, x0=x_prev, mesh=mesh, device=dev)
         xs.append(x)
         per_point.append(stats)
         if warm_start:

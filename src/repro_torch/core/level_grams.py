@@ -260,19 +260,24 @@ class BlockEmulationProvider:
         return out
 
 
-def shard_quadratics(q: Quadratic, n_shards: int, row_weights=None) -> list[Quadratic]:
-    """q's rows cut into ``n_shards`` equal blocks, each with its block of
-    the row weights (``row_weights`` overrides ``q.row_weights``). A block
-    of a per-problem A is copied contiguous, as a shard holds its rows: the
-    kernels read A only in that layout."""
+def shard_block(q: Quadratic, n_shards: int, k: int, row_weights=None) -> Quadratic:
+    """Block k of q's rows cut into ``n_shards`` equal blocks, with its block
+    of the row weights (``row_weights`` overrides ``q.row_weights``). The
+    block of A is copied contiguous, as a shard holds its rows: the kernels
+    read A only in that layout."""
     if q.n % n_shards:
         raise ValueError(f"n={q.n} not divisible by {n_shards} emulated shards")
     n_loc = q.n // n_shards
+    rows = slice(k * n_loc, (k + 1) * n_loc)
     w = _weights(q, row_weights)
-    return [Quadratic(A=q.A[..., k * n_loc:(k + 1) * n_loc, :].contiguous(), b=q.b, nu=q.nu,
-                      lam_diag=q.lam_diag, batched=q.batched,
-                      row_weights=None if w is None else w[:, k * n_loc:(k + 1) * n_loc])
-            for k in range(n_shards)]
+    return Quadratic(A=q.A[..., rows, :].contiguous(), b=q.b, nu=q.nu,
+                     lam_diag=q.lam_diag, batched=q.batched,
+                     row_weights=None if w is None else w[..., rows])
+
+
+def shard_quadratics(q: Quadratic, n_shards: int, row_weights=None) -> list[Quadratic]:
+    """q's rows cut into ``n_shards`` equal blocks (``shard_block`` each)."""
+    return [shard_block(q, n_shards, k, row_weights) for k in range(n_shards)]
 
 
 _PROVIDERS = {p.name: p for p in (

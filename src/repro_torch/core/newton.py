@@ -76,6 +76,7 @@ def adaptive_newton_solve_batched(
     ls_c1: float = 1e-4,
     compute_dtype: str = "fp32",
     deadline_s: float | None = None,
+    mesh=None,
     device=None,
 ):
     """Solve a batch of B regularized GLM problems by adaptive sketched
@@ -96,16 +97,29 @@ def adaptive_newton_solve_batched(
     ``deadline_s``: wall-clock budget over the whole solve, read between
     outer steps (the first always runs); problems unfinished when it runs
     out keep their iterate and its decrement and report
-    ``DEADLINE_EXCEEDED``."""
+    ``DEADLINE_EXCEEDED``.
+
+    ``mesh`` (``core.distributed``): every rank holds the whole (A, y), and
+    only each Newton system q_t is row-sharded (this rank's block of A and
+    of the weights), as in the reference; the gradient, the line search and
+    the weights stay replicated. A deadline is refused under a mesh, since
+    it is read on each rank's own clock between outer steps."""
     dev = resolve_device(device)
     require_on(dev, A=A, y=y)
+    if mesh is not None and deadline_s is not None:
+        raise ValueError("a row-sharded Newton solve takes no deadline: each rank "
+                         "would read its own clock")
     seeds = batch_seeds(0 if seeds is None else seeds, y.shape[0], dev)
 
     def inner_solve(t, q_t, level):
+        if mesh is not None:
+            from .distributed import shard_quadratic
+
+            q_t = shard_quadratic(q_t, mesh)
         return padded_adaptive_solve_batched(
             q_t, fold_seeds(seeds, t), m_max=m_max, method=method, sketch=sketch,
             max_iters=inner_max_iters, rho=rho, tol=inner_tol, init_level=level,
-            compute_dtype=compute_dtype, device=dev)
+            compute_dtype=compute_dtype, mesh=mesh, device=dev)
 
     return _newton_loop(family, A, y, nu, lam_diag, inner_solve,
                         newton_iters=newton_iters, tol=tol,

@@ -76,26 +76,29 @@ class Quadratic:
             return self.nu ** 2 * self.lam_diag * v
         return self.nu ** 2 * self.lam_diag[:, None] * v
 
-    def hvp(self, v: torch.Tensor) -> torch.Tensor:
-        """H v = AᵀWA v + ν²Λ v in O(nd) per problem (never forms H or
-        W^{1/2}A: the weight lands on the (·, n) intermediate)."""
+    def gram_vp(self, v: torch.Tensor) -> torch.Tensor:
+        """AᵀWA v in O(nd) per problem: the data part of H v, and the part a
+        row-sharded problem all-reduces (``core.distributed``). Never forms
+        AᵀWA or W^{1/2}A: the weight lands on the (·, n) intermediate."""
         w = self.row_weights
         if not self.batched:
             Av = self.A @ v
             if w is not None:
                 Av = (w[:, None] if Av.dim() == 2 else w) * Av
-            return self.A.T @ Av + self._reg(v)
+            return self.A.T @ Av
         if self.shared_A:
             Av = v @ self.A.T                                  # (B, n)
             if w is not None:
                 Av = w * Av
-            AtAv = Av @ self.A                                 # (B, d)
-        else:
-            Av = torch.bmm(self.A, v[:, :, None])[:, :, 0]     # (B, n)
-            if w is not None:
-                Av = w * Av
-            AtAv = torch.bmm(Av[:, None, :], self.A)[:, 0, :]  # (B, d)
-        return AtAv + self._reg(v)
+            return Av @ self.A                                 # (B, d)
+        Av = torch.bmm(self.A, v[:, :, None])[:, :, 0]         # (B, n)
+        if w is not None:
+            Av = w * Av
+        return torch.bmm(Av[:, None, :], self.A)[:, 0, :]      # (B, d)
+
+    def hvp(self, v: torch.Tensor) -> torch.Tensor:
+        """H v = AᵀWA v + ν²Λ v in O(nd) per problem."""
+        return self.gram_vp(v) + self._reg(v)
 
     def grad(self, x: torch.Tensor) -> torch.Tensor:
         return self.hvp(x) - self.b
@@ -203,15 +206,17 @@ def weighted_gram(A: torch.Tensor, w: torch.Tensor, *, chunk: int = 1024) -> tor
     return acc
 
 
-def direct_solve(q: Quadratic) -> torch.Tensor:
+def direct_solve(q: Quadratic, *, reduce=None) -> torch.Tensor:
     """Baseline: dense Cholesky factor-and-solve, O(nd²+d³), in q's dtype.
     Batched problems get a batched Cholesky; with shared A and no weights
     the Gram is formed once. A problem whose H is not positive definite
-    gets a NaN solution, as the reference's Cholesky gives."""
+    gets a NaN solution, as the reference's Cholesky gives. ``reduce`` maps
+    the local Gram to the global one (a row-sharded q's all-reduce)."""
     w = q.row_weights
+    reduce = reduce or (lambda G: G)
     if not q.batched:
         Aw = q.A if w is None else q.A * w[:, None]
-        H = Aw.T @ q.A + torch.diag(q.nu ** 2 * q.lam_diag)
+        H = reduce(Aw.T @ q.A) + torch.diag(q.nu ** 2 * q.lam_diag)
         chol = _cholesky(H)
         if q.b.dim() == 1:
             return _chol_solve(chol, q.b[:, None])[:, 0]
@@ -224,5 +229,5 @@ def direct_solve(q: Quadratic) -> torch.Tensor:
         G = torch.bmm(q.A.transpose(1, 2), q.A)
     else:
         G = torch.bmm(q.A.transpose(1, 2), w[:, :, None] * q.A)
-    H = G + torch.diag_embed((q.nu ** 2)[:, None] * q.lam_diag)
+    H = reduce(G) + torch.diag_embed((q.nu ** 2)[:, None] * q.lam_diag)
     return _chol_solve(_cholesky(H), q.b[:, :, None])[:, :, 0]

@@ -144,6 +144,7 @@ def segmented_padded_solve_batched(
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
     x0: torch.Tensor | None = None,
+    mesh=None,
     device=None,
 ):
     """The segmented host driver: ``prepare`` once, then run the loop
@@ -176,15 +177,24 @@ def segmented_padded_solve_batched(
     * ``grams`` / ``gram_full`` / ``x0`` — forwarded to ``prepare``.
 
     Extra stats: ``segments`` (segments run in this call), ``resumed`` and
-    ``deadline_hit``."""
+    ``deadline_hit``.
+
+    ``mesh``: q is this rank's row block (``core.distributed``); every host
+    decision then reads replicated state. A deadline, a preemption flag and
+    a checkpoint are refused under a mesh: the first two are read on each
+    rank's own clock and signal, and every rank would write the same
+    checkpoint directory."""
     if int(segment_trips) < 1:
         raise ValueError(f"segment_trips must be at least 1, got {segment_trips}")
+    if mesh is not None and any(v is not None for v in (deadline_s, checkpoint, preempt)):
+        raise ValueError("a row-sharded solve takes no deadline, checkpoint or "
+                         "preemption flag: each rank would decide on its own")
     t0 = time.perf_counter()
     dev = resolve_device(device)
     pre, st = prepare_padded_solve(
         q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
         init_level=init_level, guards=guards, compute_dtype=compute_dtype,
-        tol=tol, grams=grams, gram_full=gram_full, x0=x0, device=dev)
+        tol=tol, grams=grams, gram_full=gram_full, x0=x0, mesh=mesh, device=dev)
     trip_budget = padded_trip_cap(m_max, max_iters)
     ladder_len = len(doubling_ladder(m_max))
     ckpt = _as_checkpoint_manager(checkpoint)
@@ -275,6 +285,7 @@ def robust_padded_solve_batched(
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
     x0: torch.Tensor | None = None,
+    mesh=None,
     device=None,
 ):
     """Solve a batch with engine guards + sketch-redraw retries + fallback.
@@ -299,7 +310,15 @@ def robust_padded_solve_batched(
     / ``x0`` / ``on_segment`` bind to the first attempt only: a retry
     redraws its sketch. So do ``checkpoint`` / ``resume`` / ``preempt``: a
     retry is another solve, which must neither overwrite nor resume from
-    the first attempt's checkpoint."""
+    the first attempt's checkpoint.
+
+    ``mesh``: q is this rank's row block (``core.distributed``); every
+    attempt runs sharded and the fallback's Gram is all-reduced. A
+    deadline is refused under a mesh (each rank would read its own
+    clock)."""
+    if mesh is not None and deadline_s is not None:
+        raise ValueError("a row-sharded solve takes no deadline: each rank would "
+                         "read its own clock")
     t0 = time.perf_counter()
     dev = resolve_device(device)
     B = q.batch
@@ -314,7 +333,7 @@ def robust_padded_solve_batched(
     def solve(qq, ss, lvl, *, budget=None, **first):
         kw = dict(m_max=m_max, method=method, sketch=sketch, max_iters=max_iters,
                   rho=rho, tol=tol, gram_hvp=gram_hvp, init_level=lvl, guards=True,
-                  compute_dtype=compute_dtype, device=dev)
+                  compute_dtype=compute_dtype, mesh=mesh, device=dev)
         if not segmented:
             return padded_adaptive_solve_batched(qq, ss, **kw, **first)
         return segmented_padded_solve_batched(qq, ss, **kw, **first,
@@ -385,7 +404,13 @@ def robust_padded_solve_batched(
     budget = remaining()
     if fallback and fidx.size and (budget is None or budget > 0):
         g_idx = torch.as_tensor(fidx, device=dev)
-        x_fb = direct_solve(_gather_quadratic(q, g_idx))
+        reduce = None
+        if mesh is not None:
+            from .distributed import all_reduce_sum
+
+            def reduce(G):
+                return all_reduce_sum(G.contiguous(), mesh)
+        x_fb = direct_solve(_gather_quadratic(q, g_idx), reduce=reduce)
         finite = torch.isfinite(x_fb).all(-1).cpu().numpy()
         if finite.any():
             keep = torch.as_tensor(finite, device=dev)
@@ -424,9 +449,11 @@ def robust_path_solve_batched(
     warm_start: bool = True,
     grams: torch.Tensor | None = None,
     gram_full: torch.Tensor | None = None,
+    mesh=None,
     device=None,
 ):
-    """A regularization path with the full recovery policy at every point.
+    """A regularization path with the full recovery policy at every point
+    (under ``mesh``, on this rank's row block).
 
     The λ-free ladder (and the true Gram) is paid once through
     ``prepare_path_ladder``, or supplied as ``grams=`` / ``gram_full=`` (the
@@ -450,7 +477,7 @@ def robust_path_solve_batched(
     if grams is None:
         grams, gram_full = prepare_path_ladder(
             q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
-            compute_dtype=compute_dtype, device=dev)
+            compute_dtype=compute_dtype, mesh=mesh, device=dev)
     xs, per_point = [], []
     x_prev, lvl = None, init_level
     sketch_passes = 1
@@ -461,7 +488,7 @@ def robust_path_solve_batched(
             max_iters=max_iters, rho=rho, tol=tol, gram_hvp=gram_hvp,
             init_level=lvl, max_retries=max_retries, fallback=fallback,
             compute_dtype=compute_dtype, grams=grams, gram_full=gram_full,
-            x0=x_prev, device=dev)
+            x0=x_prev, mesh=mesh, device=dev)
         # each retry attempt that ran redrew a sketch on the sub-batch
         sketch_passes += int(stats["retries"].max())
         xs.append(x)

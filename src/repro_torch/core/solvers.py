@@ -156,3 +156,22 @@ def run_fixed(q: Quadratic, P: SketchedPrecond, x0: torch.Tensor, *,
         st = step_fn(q, P, st, rho)
         trace.append(st.delta_tilde)
     return st.x, torch.stack(trace)
+
+
+def newton_solve(J: torch.Tensor, grad: torch.Tensor, nu: float, *, method: str = "pcg",
+                 sketch: str = "sjlt", max_iters: int = 100, tol: float = 1e-10,
+                 seed=0, sampler=None, device=None):
+    """Solve the damped Gauss-Newton system (JᵀJ + ν²I) δ = −grad with the
+    adaptive sketching solver (``core.adaptive``). J is the (n, d) residual
+    Jacobian or Gauss-Newton factor on ``device`` (default cuda); returns
+    (δ, the ``AdaptiveResult``). ``seed`` and ``sampler`` go to
+    ``adaptive_solve``."""
+    from .adaptive import AdaptiveConfig, adaptive_solve
+
+    d = J.shape[1]
+    q = Quadratic(A=J, b=-grad, nu=torch.as_tensor(nu, dtype=J.dtype, device=J.device),
+                  lam_diag=torch.ones((d,), dtype=J.dtype, device=J.device))
+    res = adaptive_solve(q, AdaptiveConfig(method=method, sketch=sketch,
+                                           max_iters=max_iters, tol=tol),
+                         seed=seed, sampler=sampler, device=device)
+    return res.x, res

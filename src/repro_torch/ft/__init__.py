@@ -1,6 +1,5 @@
-"""Fault tolerance: checkpoints, preemption, straggler detection and the
-fault-injection harness (port of ``repro.ft``; the elastic re-meshing plan
-waits for the port's collectives)."""
+"""Fault tolerance: checkpoints, elastic re-meshing plans, preemption,
+straggler detection and the fault-injection harness (port of ``repro.ft``)."""
 
 from .checkpoint import CheckpointManager
 from .faults import (
@@ -12,4 +11,11 @@ from .faults import (
     inject_nan_row,
     rank_deficient_matrix,
 )
-from .resilience import PreemptionHandler, StragglerWatchdog, run_with_restarts
+from .resilience import (
+    ElasticPlan,
+    PreemptionHandler,
+    StragglerWatchdog,
+    plan_elastic,
+    plan_mesh_shape,
+    run_with_restarts,
+)

@@ -1,17 +1,74 @@
-"""Preemption handling, straggler detection and a restartable step loop.
+"""Elastic re-meshing plans, preemption handling, straggler detection and
+a restartable step loop.
 
-Port of the plain-Python half of ``repro.ft.resilience``: the mechanisms
-are the reference's, unit-tested on the CPU. The elastic re-meshing plan
-(``ElasticPlan``, ``plan_elastic``) builds a device mesh and waits for the
-port's collectives (ROADMAP queue 1 item 8).
+Port of ``repro.ft.resilience``: the mechanisms are the reference's,
+unit-tested on the CPU. An elastic plan is made on an abstract mesh, a
+shape and its axis names with no devices, so the controller can plan
+before the new set of ranks is up; ``launch.mesh.make_elastic_mesh``
+realizes the same shape as a ``DeviceMesh`` at restart.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import signal
 import statistics
 import time
 from typing import Callable, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape and axis names, with no devices (the counterpart of
+    ``jax.sharding.AbstractMesh``)."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    n_devices: int
+    mesh: AbstractMesh
+    per_device_batch: int
+    num_microbatches: int
+
+
+def plan_mesh_shape(n_devices: int) -> tuple[int, int]:
+    """(data, model) for any live-device count: model = 16 when it divides,
+    else the largest power-of-two divisor ≤ 16."""
+    model = 1
+    for cand in (16, 8, 4, 2):
+        if n_devices % cand == 0:
+            model = cand
+            break
+    return n_devices // model, model
+
+
+def plan_elastic(global_batch: int, n_live_devices: int,
+                 target_microbatch: int = 32) -> ElasticPlan:
+    """The largest usable mesh for the live-device count and a batch plan
+    that keeps the global batch. The data axis shrinks to the largest
+    divisor of the global batch that fits; devices left over idle as hot
+    spares."""
+    data, model = plan_mesh_shape(n_live_devices)
+    while global_batch % data:
+        data -= 1
+    mesh = AbstractMesh((data, model), ("data", "model"))
+    nmb = max(1, global_batch // target_microbatch)
+    while global_batch % nmb:
+        nmb -= 1
+    return ElasticPlan(n_devices=mesh.size, mesh=mesh,
+                       per_device_batch=global_batch // data, num_microbatches=nmb)
 
 
 class StragglerWatchdog:

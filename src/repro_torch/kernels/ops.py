@@ -12,6 +12,14 @@ pass and segment sum: ``sjlt.sjlt_launch``). A Gaussian call with row
 weights in the fp32 or bf16 mode counts under its weighted leg
 (``"gaussian_sa.weighted"``, ``"gaussian_sa.bf16.weighted"``: the Pallas
 body ``_gauss_sa_kernel_scaled``, whose int8 leg every int8 call is).
+
+``BODY_LAUNCHES`` counts the same launches by the reference's Pallas body
+they replace, whatever the dtype: ``_gauss_sa_kernel`` (no column scale)
+or ``_gauss_sa_kernel_scaled``; ``_fwht_kernel`` (a launch without the row
+scale, the later passes of a split plan included) or
+``_fwht_kernel_scaled``; ``_sjlt_kernel`` (one sketch of a shared A, B = 1)
+or ``_sjlt_kernel_batched``. The paper-literal sketches
+(``core.sketches``) are what launch the unscaled FWHT and the B = 1 SJLT.
 """
 
 from __future__ import annotations
@@ -47,9 +55,15 @@ LAUNCHES = {**{leg(k, c): 0 for k in KERNELS for c in COMPUTE_DTYPES},
             **dict.fromkeys(WEIGHTED_LEGS, 0)}
 
 
+BODIES = ("_gauss_sa_kernel", "_gauss_sa_kernel_scaled", "_fwht_kernel",
+          "_fwht_kernel_scaled", "_sjlt_kernel", "_sjlt_kernel_batched")
+BODY_LAUNCHES = dict.fromkeys(BODIES, 0)
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -72,6 +86,7 @@ def gaussian_sa(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
         return gaussian_sa_ref(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
     out = gaussian_sa_cuda(A, seeds, m, scale=scale, compute_dtype=compute_dtype)
     LAUNCHES[leg("gaussian_sa", compute_dtype, weighted=row_weights is not None)] += 1
+    BODY_LAUNCHES["_gauss_sa_kernel" if scale is None else "_gauss_sa_kernel_scaled"] += 1
     return out
 
 
@@ -89,6 +104,9 @@ def fwht_cols(X: torch.Tensor, *, row_scale: torch.Tensor | None = None,
     out, launches = fwht_passes_cuda(X, row_scale, batch=batch,
                                      compute_dtype=compute_dtype)
     LAUNCHES[leg("fwht", compute_dtype)] += launches
+    scaled = int(row_scale is not None)
+    BODY_LAUNCHES["_fwht_kernel_scaled"] += scaled
+    BODY_LAUNCHES["_fwht_kernel"] += launches - scaled
     return out
 
 
@@ -167,6 +185,8 @@ def sjlt_apply_batched(A: torch.Tensor, rows: torch.Tensor, signs: torch.Tensor,
         return sjlt_ref_batched(A, rows, signs, m, compute_dtype)
     out = sjlt_cuda_batched(A, rows, signs, m, compute_dtype)
     LAUNCHES[leg("sjlt", compute_dtype)] += 1
+    single = A.dim() == 2 and rows.shape[0] == 1
+    BODY_LAUNCHES["_sjlt_kernel" if single else "_sjlt_kernel_batched"] += 1
     return out
 
 

@@ -4,7 +4,8 @@ through the port's shape-class bucketing and batched adaptive engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
         [--glm N] [--path N] [--path-points P] \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
-        [--device cuda|cpu] [--deadline-s T] [--segment-trips K] [--faulty N]
+        [--device cuda|cpu] [--deadline-s T] [--segment-trips K] [--faulty N] \
+        [--mesh K [--backend gloo|nccl]]
     PYTHONPATH=src python -m repro_torch.launch.serve --preempt-after S \\
         [--requests N] [--device cuda|cpu]
 
@@ -22,13 +23,21 @@ iterates, the ridge solves running in segments of ``--segment-trips`` loop
 trips. ``--faulty N`` adds N NaN-filled requests under ``strict=False``:
 they come back REJECTED without touching their neighbours.
 
+``--mesh K`` serves the same traffic on K ranks (``launch.mesh.run_ranks``),
+a sharded service (``SolverService(mesh=)``) on each: every rank draws the
+same requests, keeps its row block of each packed batch and gets the same
+answers; rank 0's report is printed. The default classes then include the
+pod-scale (65536, 256, 512, srht) class. The ranks use gloo unless
+``--backend nccl`` (which needs a card per rank); a sharded service takes no
+deadline.
+
 ``--preempt-after S`` runs the preemption cycle instead: it starts
 ``python -m repro_torch.launch.solve_service`` with a checkpoint directory
 as a subprocess, sends it SIGTERM S seconds after its flush began, requires
 exit code 75 (the in-flight chunk committed), restarts it with
 ``--resume``, and requires a clean exit with every answer finite and
 audited against a direct solve. A flush that ends before the signal fails
-the cycle. LM serving and meshes are not ported yet.
+the cycle. LM serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -58,10 +67,10 @@ def _shape(g, dev) -> tuple[int, int]:
     return n, d
 
 
-def serve_ridge(args) -> dict:
+def serve_ridge(args, mesh=None) -> dict:
     svc = SolverService(method="pcg", sketch=args.sketch, compute_dtype=args.dtype,
                         segment_trips=args.segment_trips, ladder_cache=bool(args.path),
-                        strict=not args.faulty, device=args.device)
+                        strict=not args.faulty, mesh=mesh, device=args.device)
     dev = svc.device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     for _ in range(args.requests):
@@ -93,7 +102,8 @@ def serve_ridge(args) -> dict:
           f"{len(sols)} requests in {dt:.2f}s "
           f"({len(sols) / dt:.1f} req/s) — {svc.stats['batches']} batches of "
           f"{svc.batch_size}, {svc.stats['padded_slots']} padded slots "
-          f"({100 * svc.slot_utilization():.0f}% slot utilization)")
+          f"({100 * svc.slot_utilization():.0f}% slot utilization"
+          + ("" if mesh is None else f", {args.mesh} ranks in a data mesh") + ")")
     glm = [s for s in sols.values() if isinstance(s, GLMSolution)]
     path = [s for s in sols.values() if isinstance(s, PathSolution)]
     ok = [s for s in sols.values()
@@ -132,6 +142,37 @@ def serve_ridge(args) -> dict:
               f"sketch_passes={warm.sketch_passes} (ladder served from the "
               f"fingerprint cache; {svc.stats['sketch_passes_saved']} passes saved)")
     return sols
+
+
+def mesh_rank(mesh, payload: dict) -> str:
+    """One rank of ``--mesh K``: the sharded service on this rank's device;
+    returns what ``serve_ridge`` printed."""
+    import contextlib
+    import io
+
+    args = argparse.Namespace(**payload)
+    if args.device in (None, "cuda"):
+        args.device = f"cuda:{torch.cuda.current_device()}"
+        torch.set_float32_matmul_precision("highest")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_ridge(args, mesh=mesh)
+    return out.getvalue()
+
+
+def serve_mesh(args) -> None:
+    from repro_torch.launch.mesh import run_ranks
+
+    device = args.device or "cuda"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--mesh on cuda needs a card; pass --device cpu")
+    backend = args.backend or "gloo"
+    texts = run_ranks("repro_torch.launch.serve:mesh_rank", args.mesh, vars(args),
+                      backend=backend, device=torch.device(device).type)
+    print(texts[0], end="")
+    if any(t.splitlines()[1:] != texts[0].splitlines()[1:] for t in texts[1:]):
+        raise SystemExit("the ranks' certificates differ")
+    print(f"{args.mesh} ranks ({backend}) gave the same certificates")
 
 
 # the preempted child: at tol = 0 a chunk iterates until δ̃ is exactly 0
@@ -223,6 +264,11 @@ def main(argv=None):
                         "of it return DEADLINE_EXCEEDED with their best iterate")
     p.add_argument("--segment-trips", type=int, default=32,
                    help="loop trips per segment of a deadline-bound solve")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="serve on this many ranks, each a sharded service holding "
+                        "its row block (0: one process, no mesh)")
+    p.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                   help="process-group backend of --mesh (default gloo)")
     args = p.parse_args(argv)
     if args.preempt_after is not None:
         args.requests = 6 if args.requests is None else args.requests
@@ -230,6 +276,10 @@ def main(argv=None):
     if not args.ridge:
         p.error("pass --ridge (solver traffic) or --preempt-after S")
     args.requests = 24 if args.requests is None else args.requests
+    if args.mesh:
+        if args.deadline_s is not None:
+            p.error("a sharded service takes no deadline (--mesh with --deadline-s)")
+        return serve_mesh(args)
     return serve_ridge(args)
 
 

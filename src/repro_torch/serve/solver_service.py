@@ -56,8 +56,20 @@ touching A. Solutions record ``cache_hit``.
 Per-slot seeds come from ``_slot_seeds``: a fold of the service seed with
 the slot id (a real slot's request id, or its fingerprint's id under the
 cache; padded slots the reserved ids 2³²−1−slot), so a request's sketch
-does not depend on what it is packed with. Not ported yet: sharding
-(ROADMAP queue 1 item 8).
+does not depend on what it is packed with.
+
+Sharded mode (``mesh=``, a ``DeviceMesh`` of the ranks that serve together,
+``core.distributed``): every rank runs the same service on the same
+submissions, so each packs the same batch with the same b and seeds as one
+device would, but keeps only its row block of the packed A (its rows of
+each request, zero-padded). Every solve then runs with ``mesh=``: one
+all-reduce each for the ladder Grams and the true Gram, and every rank
+returns the same answers. The default classes add the pod-scale tail
+(65536, 256, 512, srht), which one device need not hold whole; every
+class's n must divide by the data-shard count. A flush with a deadline is
+refused in this mode (expiring or dispatching a chunk would be a decision
+on each rank's own clock), and so is a chunk with a checkpoint directory or
+a preemption flag (the segmented driver's rule under a mesh).
 """
 
 from __future__ import annotations
@@ -98,6 +110,14 @@ DEFAULT_SHAPE_CLASSES = (
     ShapeClass(n=4096, d=256, m_max=512),
     # large-n tail: one FWHT pass instead of the streamed Gaussian
     ShapeClass(n=16384, d=256, m_max=512, sketch="srht"),
+)
+
+# a sharded service (mesh=...) also serves the pod-scale tail: each data
+# shard holds n/K rows of the packed batch and the one-touch pass all-reduces
+# the (L, B, d, d) level Grams; a service without a mesh keeps refusing
+# such requests with "no shape class fits"
+SHARDED_SHAPE_CLASSES = DEFAULT_SHAPE_CLASSES + (
+    ShapeClass(n=65536, d=256, m_max=512, sketch="srht"),
 )
 
 
@@ -216,7 +236,8 @@ class SolverService:
     ``ladder_cache_size`` λ-free ladder slices (on the device), keyed by
     content fingerprint. ``checkpoint_dir`` and ``preempt`` make ridge
     chunks preemptible (module docstring). The GLM driver's knobs are the
-    attributes ``newton_iters`` and ``newton_tol``."""
+    attributes ``newton_iters`` and ``newton_tol``. ``mesh`` turns on the
+    sharded mode (module docstring)."""
 
     def __init__(
         self,
@@ -239,12 +260,22 @@ class SolverService:
         preempt=None,
         ladder_cache: bool = False,
         ladder_cache_size: int = 64,
+        mesh=None,
         device=None,
     ):
         self.device = resolve_device(device)
-        self.shape_classes = sorted(DEFAULT_SHAPE_CLASSES if shape_classes is None
-                                    else shape_classes,
-                                    key=lambda c: (c.n, c.d, c.m_max))
+        if shape_classes is None:
+            shape_classes = SHARDED_SHAPE_CLASSES if mesh is not None else DEFAULT_SHAPE_CLASSES
+        self.shape_classes = sorted(shape_classes, key=lambda c: (c.n, c.d, c.m_max))
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.core.distributed import n_data_shards
+
+            k = n_data_shards(mesh)
+            bad = [c for c in self.shape_classes if c.n % k]
+            if bad:
+                raise ValueError(f"shape classes {bad} have n not divisible by the "
+                                 f"mesh's {k} data shards")
         self.batch_size = batch_size
         self.method = method
         self.sketch = sketch
@@ -480,15 +511,23 @@ class SolverService:
         """Pad each request to the class shape and stack on the device; pad
         the batch to ``batch_size`` with trivial (b = 0) problems. The real
         slots' sketch ids are their request ids, or ``slot_ids`` (the ladder
-        cache keys slots by fingerprint). Returns (q, seeds)."""
+        cache keys slots by fingerprint). Sharded, q's A is this rank's row
+        block of the packed batch, b the whole batch's. Returns (q, seeds)."""
         B, dev = self.batch_size, self.device
-        A = torch.zeros((B, cls.n, cls.d), device=dev)
+        r0, n_rows = 0, cls.n
+        if self.mesh is not None:
+            from repro_torch.core.distributed import data_index, n_data_shards
+
+            n_rows = cls.n // n_data_shards(self.mesh)
+            r0 = data_index(self.mesh) * n_rows
+        A = torch.zeros((B, n_rows, cls.d), device=dev)
         b = torch.zeros((B, cls.d), device=dev)
         nu = torch.ones(B, device=dev)
         lam = torch.ones((B, cls.d), device=dev)
         for i, r in enumerate(reqs):
             ni, di = r.A.shape
-            A[i, :ni, :di] = r.A
+            block = r.A[r0:r0 + n_rows]
+            A[i, :block.shape[0], :di] = block
             b[i, :di] = r.A.T @ r.y
             nu[i] = r.nu
             if r.lam_diag is not None:
@@ -531,6 +570,12 @@ class SolverService:
         Newton steps; a path chunk's only before dispatch."""
         if deadline_s is None:
             deadline_s = self.flush_deadline_s
+        if self.mesh is not None and (deadline_s is not None or any(
+                r.deadline is not None for store in (self._queues, self._glm_queues,
+                                                     self._path_queues)
+                for queue in store.values() for r in queue)):
+            raise ValueError("a sharded service takes no deadlines: each rank would "
+                             "decide on its own clock")
         t0 = time.perf_counter()
         out: dict = dict(self._quarantined)
         self._quarantined = {}
@@ -655,7 +700,8 @@ class SolverService:
             self.stats["sketch_passes_saved"] += 1
             return grams, gfull, True
         grams, gfull = prepare_path_ladder(q, seeds, m_max=cls.m_max, sketch=sketch,
-                                           gram_hvp=True, compute_dtype=cd, device=dev)
+                                           gram_hvp=True, compute_dtype=cd, mesh=self.mesh,
+                                           device=dev)
         for i, (fp, hit) in enumerate(zip(fps, hits)):
             if hit:
                 self.stats["ladder_cache_hits"] += 1
@@ -703,7 +749,7 @@ class SolverService:
             q, seeds, nus.to(self.device), m_max=cls.m_max, method=self.method,
             sketch=sketch, max_iters=self.max_iters, rho=self.rho, tol=self.tol,
             max_retries=self.max_retries, fallback=self.fallback, compute_dtype=cd,
-            grams=grams, gram_full=gfull, device=self.device)
+            grams=grams, gram_full=gfull, mesh=self.mesh, device=self.device)
         self._finish_chunk(t0, len(reqs))
         passes = int(stats["sketch_passes"]) - (1 if skipped else 0)
         out = {}
@@ -742,7 +788,7 @@ class SolverService:
             method=self.method, sketch=sketch, newton_iters=self.newton_iters,
             tol=self.newton_tol, inner_max_iters=self.max_iters, rho=self.rho,
             inner_tol=self.tol, compute_dtype=cd, deadline_s=budget_s,
-            device=self.device)
+            mesh=self.mesh, device=self.device)
         self._finish_chunk(t0, len(reqs))
         host = {k: v.cpu() for k, v in stats.items() if torch.is_tensor(v)}
         m_traj = stats["m_trajectory"]                       # (T, B)
@@ -780,7 +826,8 @@ class SolverService:
             q, seeds, m_max=cls.m_max, method=self.method, sketch=sketch,
             max_iters=self.max_iters, rho=self.rho, tol=self.tol,
             max_retries=self.max_retries, fallback=self.fallback,
-            compute_dtype=cd, grams=grams, gram_full=gfull, device=self.device, **seg)
+            compute_dtype=cd, grams=grams, gram_full=gfull, mesh=self.mesh,
+            device=self.device, **seg)
         self._finish_chunk(t0, len(reqs))
         self.stats["segments"] += stats["segments"]
         self.stats["resumed_chunks"] += int(stats["resumed"])

@@ -659,3 +659,86 @@ def test_preempt_resume_bitwise_on_card(dev, tmp_path, sketch, compute_dtype):
     assert torch.equal(x, x_ref)
     for k in ("status", "m_final", "iters", "dtilde", "level", "doublings", "trips"):
         assert torch.equal(s[k], s_ref[k]), k
+
+
+@pytest.mark.parametrize("kind,body", [("gaussian", "_gauss_sa_kernel"),
+                                       ("srht", "_fwht_kernel_scaled"),
+                                       ("sjlt", "_sjlt_kernel")])
+def test_paper_literal_sketch_legs_match_plain(dev, kind, body):
+    """``core.sketches`` on the card launches the single-problem legs (the
+    shared-A Gaussian, the SRHT's scaled FWHT in apply and unscaled in
+    apply_t, the B = 1 SJLT) and agrees with the same sketch applied on the
+    CPU by the plain versions: within 1e-4 of the scale for the Gaussian
+    (fp32 sums of n products in two orders), 1e-5 for the SJLT (reordered
+    sums), bitwise for the FWHT."""
+    from repro_torch.core.sketches import Sketch, make_sketch
+
+    n, d, m = 3000, 96, 256
+    A = torch.randn((n, d), generator=torch.Generator().manual_seed(1))
+    sk = make_sketch(kind, m, n, 12345, device=dev)
+    sk_cpu = Sketch(kind, m, n, {k: v.cpu() for k, v in sk.data.items()})
+    ops.reset_launches()
+    got = sk.apply(A.to(dev))
+    back = sk.apply_t(got)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[body] == 1
+    assert ops.BODY_LAUNCHES["_fwht_kernel"] == (1 if kind == "srht" else 0)
+    want = sk_cpu.apply(A)
+    tol = {"gaussian": 1e-4, "srht": 1e-6, "sjlt": 1e-5}[kind]
+    assert float((got.cpu() - want).abs().max()) <= tol * float(want.abs().max())
+    want_t = sk_cpu.apply_t(got.cpu())
+    assert float((back.cpu() - want_t).abs().max()) <= 1e-5 * float(want_t.abs().max())
+
+
+def test_adaptive_solve_on_card(dev):
+    """The paper's adaptive PCG on the card, each family, against an fp64
+    direct solve within 1e-3 in the H-norm."""
+    from repro_torch.core import AdaptiveConfig, adaptive_solve
+    from repro_torch.core.quadratic import from_least_squares
+
+    n, d = 2048, 128
+    g = torch.Generator().manual_seed(3)
+    U, _ = torch.linalg.qr(torch.randn((n, d), generator=g))
+    A = (U * 0.95 ** torch.arange(d)).contiguous()
+    y = torch.randn(n, generator=g)
+    H = A.double().T @ A.double() + 1e-4 * torch.eye(d, dtype=torch.float64)
+    x64 = torch.linalg.solve(H, A.double().T @ y.double())
+    q = from_least_squares(A.to(dev), y.to(dev), 1e-2)
+    for kind in ("gaussian", "srht", "sjlt"):
+        res = adaptive_solve(q, AdaptiveConfig(sketch=kind, tol=1e-8), seed=5, device=dev)
+        e = res.x.cpu().double() - x64
+        assert float(torch.sqrt(e @ H @ e / (x64 @ H @ x64))) < 1e-3
+        assert res.m_final >= 8 and res.x.device.type == "cuda"
+
+
+def test_sharded_pass_on_four_gloo_ranks_sharing_the_card(dev):
+    """4 gloo ranks on the one card: the summed pass within 1e-6 of the
+    one-process block emulation (the all-reduce adds in its own order), the
+    per-shard form and ShardLadderCache.from_mesh bitwise."""
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.distributed import ShardLadderCache
+    from repro_torch.core.level_grams import BlockEmulationProvider
+    from repro_torch.core.quadratic import Quadratic
+    from repro_torch.launch.mesh import run_ranks
+
+    B, n, d, m_max, K = 4, 1024, 64, 64, 4
+    g = torch.Generator().manual_seed(4)
+    q = Quadratic(A=torch.randn((B, n, d), generator=g) / n ** 0.5, b=torch.zeros((B, d)),
+                  nu=torch.ones(B), lam_diag=torch.ones((B, d)), batched=True)
+    seeds = torch.tensor([1, 2, 3, 4], dtype=torch.int64)
+    ladder = doubling_ladder(m_max)
+    cases = [("gaussian", "fp32"), ("sjlt", "int8"), ("srht", "bf16")]
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", K, {"device": "cuda", "tasks": [
+        (f"{f}/{c}", "pass", dict(q=q, seeds=seeds, ladder=ladder, sketch=f, compute_dtype=c))
+        for f, c in cases]}, backend="gloo", device="cuda", timeout=600)
+    qd = Quadratic(A=q.A.to(dev), b=q.b.to(dev), nu=q.nu.to(dev), lam_diag=q.lam_diag.to(dev),
+                   batched=True)
+    for f, c in cases:
+        prov = BlockEmulationProvider(f, K)
+        want = prov.level_grams(prov.sample(seeds.to(dev), m_max, n), qd, ladder,
+                                compute_dtype=c).cpu()
+        emu = ShardLadderCache.from_emulation(f, seeds.to(dev), qd, ladder, K, compute_dtype=c)
+        got = res[0][f"{f}/{c}"]
+        assert float((got["grams"] - want).abs().max()) <= 1e-6 * float(want.abs().max())
+        assert torch.equal(got["per_shard"], emu.shard_grams.cpu())
+        assert torch.equal(got["cache_total"], emu.total().cpu())

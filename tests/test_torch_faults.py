@@ -317,7 +317,8 @@ def test_shard_dropout_concentrated_mass_falls_back(clean):
 def test_shard_cache_total_matches_provider(clean):
     """The cache's total is bitwise the block provider's Grams (same seeds,
     same shard order); ``drop`` is a fresh 3-shard sum to rounding; a dead
-    shard cannot die twice; the mesh build waits for item 8."""
+    shard cannot die twice; the mesh build on a one-rank group is bitwise
+    the one-shard emulation."""
     ladder = tap.doubling_ladder(M_MAX)
     q, seeds = clean["qt"], clean["seeds"]
     prov = BlockEmulationProvider("gaussian", 4)
@@ -332,8 +333,22 @@ def test_shard_cache_total_matches_provider(clean):
     assert cache.alive == {0, 2, 3}
     with pytest.raises(ValueError):
         cache.drop(1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ShardLadderCache.from_mesh("gaussian", seeds, q, ladder, None)
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            built = ShardLadderCache.from_mesh("gaussian", seeds, q, ladder, mesh)
+        finally:
+            dist.destroy_process_group()
+    one = ShardLadderCache.from_emulation("gaussian", seeds, q, ladder, 1)
+    assert torch.equal(built.shard_grams, one.shard_grams)
+    assert torch.equal(built.total(), one.total())
 
 
 def test_shard_loss_mid_solve_recovers_ok(clean):

@@ -75,3 +75,33 @@ def test_tensors_off_the_entry_points_device_raise():
     with pytest.raises(ValueError, match="expected cuda"):
         require_on(torch.device("cuda"), A=torch.zeros(2))
     require_on(torch.device("cpu"), A=torch.zeros(2), b=None)
+
+
+def test_paper_literal_and_sharded_entry_points_default_to_cuda():
+    """The paper-literal solver, its sketches and spectrum take the card
+    unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch.core import exp_decay_singular_values, make_sketch
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sketch("sjlt", 4, 16, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exp_decay_singular_values(8)
+    from repro_torch.core import AdaptiveConfig, adaptive_solve
+    from repro_torch.core.quadratic import from_least_squares
+
+    q = from_least_squares(torch.eye(4), torch.ones(4), 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adaptive_solve(q, AdaptiveConfig())
+    assert make_sketch("sjlt", 4, 16, 0, device="cpu").data["rows"].device.type == "cpu"
+
+
+def test_spawned_ranks_import_no_jax():
+    """A rank of ``launch.mesh.run_ranks`` imports its job's module and the
+    port only, even when the launching process has JAX loaded."""
+    from repro_torch.launch.mesh import run_ranks
+
+    out = run_ranks("repro_torch.launch.sharded:run_tasks", 1,
+                    {"device": "cpu", "tasks": [("imports", "imports", {})]}, timeout=300)
+    assert out == [{"rank": 0, "imports": []}]
