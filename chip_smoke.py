@@ -86,11 +86,17 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    d = 1024, σ_j = 0.995^(7000 j/d), ν ∈ {1e-1, 1e-2, 1e-3}, tol 1e-8) in
    sjlt, srht and gaussian, each answer within the ridge gate of an fp64
    direct solve, printed with m_final beside d_e, iterations, doublings,
-   wall time and the fp32 Cholesky direct solve's time; each final sketch's
-   ``apply_t`` checked as the adjoint of ``apply``; the launches per Pallas
-   body, of which the B = 1 SJLT (sjlt.py:72), the unscaled FWHT
-   (fwht.py:30) and the shared-A Gaussian must be nonzero, and those three
-   legs held against their plain versions at the path's shapes; (b) 4 gloo
+   wall time and the fp32 Cholesky direct solve's time; the launch counts
+   set to 0 just before each solve and read just after it, and summed over
+   the solves per Pallas body: the B = 1 SJLT (sjlt.py:72), the scaled FWHT
+   (fwht.py:43, SRHT ``apply``) and the shared-A Gaussian must be nonzero.
+   The solver never calls ``apply_t``, in the reference either, so the
+   unscaled FWHT (fwht.py:30) is off this path; after each solve the final
+   sketch's ``apply_t`` is checked as the adjoint of ``apply`` (launches
+   not counted). The B = 1 SJLT and shared-A Gaussian legs are then held
+   against their plain versions through the wrappers the path calls, at the
+   path's shapes and on its sketch data, and so is the unscaled FWHT at
+   ``apply_t``'s shape; (b) 4 gloo
    ranks on the one card (``launch.mesh.run_ranks``): ``shard_level_grams``
    at the top class (B = 16, n = 4096, d = 256, m_max = 512) in
    gaussian/fp32, sjlt/int8 and srht/bf16 against the one-process
@@ -1351,7 +1357,8 @@ def phase_paper(smi):
     """Phase 8 (a): the paper's adaptive IHS and PCG (``core.adaptive``) at
     fig1's size on the card in every family, each answer against an fp64
     direct solve; then each single-problem kernel leg the path launched,
-    held against its plain version at the path's shapes. Returns (the
+    held against its plain version through the path's wrapper at the
+    path's shapes, and the unscaled FWHT at ``apply_t``'s. Returns (the
     launch counts per Pallas body over the solves, the kernels-line rows)."""
     import math
 
@@ -1360,18 +1367,14 @@ def phase_paper(smi):
     from repro_torch.core import AdaptiveConfig, adaptive_solve, effective_dimension, make_sketch
     from repro_torch.core.level_grams import fold_seeds
     from repro_torch.core.quadratic import direct_solve
+    from repro_torch.core.sketches import _block_seeds
     from repro_torch.kernels import ops
     from repro_torch.kernels import sjlt as ksj
     from repro_torch.kernels.fwht import fwht_ref, hadamard_dense
-    from repro_torch.kernels.gaussian_gram import (
-        gaussian_s_dense,
-        gaussian_sa_cuda,
-        gaussian_sa_ref,
-    )
+    from repro_torch.kernels.gaussian_gram import gaussian_s_dense, gaussian_sa_ref
 
     dev = torch.device("cuda")
-    ops.reset_launches()
-    per_leg, last = {}, {}
+    per_leg, last = dict.fromkeys(ops.BODIES, 0), {}
     worst = 0.0
     for nu in PAPER_NUS:
         q, sv, y = _paper_problem(dev, nu)
@@ -1391,16 +1394,15 @@ def phase_paper(smi):
                     sketches.append(make_sketch(kind, m, q.n, fold_seeds(
                         torch.tensor(1, device=dev), phase), device=dev))
                     return sketches[-1]
-                before = dict(ops.BODY_LAUNCHES)
                 torch.cuda.synchronize()
+                ops.reset_launches()
                 t0 = time.perf_counter()
                 res = adaptive_solve(q, AdaptiveConfig(method=method, sketch=kind,
                                                        max_iters=PAPER_MAX_ITERS, tol=PAPER_TOL),
                                      sampler=sampler, device=dev)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-                legs = {k: ops.BODY_LAUNCHES[k] - before[k] for k in ops.BODY_LAUNCHES
-                        if ops.BODY_LAUNCHES[k] != before[k]}
+                legs = {k: v for k, v in ops.BODY_LAUNCHES.items() if v}
                 e = res.x.double() - x64
                 err = float(torch.sqrt((e @ H64 @ e) / (x64 @ H64 @ x64)))
                 gate = max(SOLVE_REL_TOL, FP32_UNIT * kappa * max(res.iters, 1) ** 0.5)
@@ -1418,8 +1420,9 @@ def phase_paper(smi):
                                      f"misses the ridge gate: {err:.3e} > {gate:.3e}")
                 for k, v in legs.items():
                     per_leg[k] = per_leg.get(k, 0) + v
-                # the final sketch's adjoint check: ⟨A, Sᵀ(SA)⟩ = ‖SA‖², through
-                # apply_t (the SRHT's unscaled FWHT)
+                # the final sketch's adjoint check, ⟨A, Sᵀ(SA)⟩ = ‖SA‖², through
+                # apply_t (the SRHT's unscaled FWHT); its launches are not the
+                # path's and were read above
                 sk = sketches[-1] if sketches else None      # every sketch has m < n
                 if sk is not None:
                     SA = sk.apply(q.A)
@@ -1430,25 +1433,26 @@ def phase_paper(smi):
                                          f"apply: {lhs} against {rhs}")
                     last[kind] = sk
         del H64, x64
-    launches = dict(ops.BODY_LAUNCHES)
-    print(f"[paper] launches per Pallas body over phase 8 (a): {launches}; worst answer "
-          f"{worst:.3f} of its gate")
-    missing = [k for k in ("_gauss_sa_kernel", "_fwht_kernel", "_fwht_kernel_scaled",
-                           "_sjlt_kernel") if launches[k] <= 0]
+    launches = per_leg
+    print(f"[paper] launches per Pallas body over the phase 8 (a) solves: {launches}; "
+          f"worst answer {worst:.3f} of its gate")
+    missing = [k for k in ("_gauss_sa_kernel", "_fwht_kernel_scaled", "_sjlt_kernel")
+               if launches[k] <= 0]
     if missing:
         raise SystemExit(f"chip_smoke: the paper-literal path never launched {missing}")
 
-    # the single-problem legs at the path's shapes: A (8192, 1024) and the
-    # largest final sketch below n of each family
+    # the single-problem legs at the path's shapes, through the wrappers the
+    # path calls, on its final sketches' data: A (8192, 1024) and the largest
+    # final sketch below n of each family (the Gaussian's first row block)
     q, _, _ = _paper_problem(dev, PAPER_NUS[-1])
     A, n, d = q.A, PAPER_N, PAPER_D
     src = "src/repro_torch/kernels/csrc/"
     rows = []
-    m = last["gaussian"].m
-    seeds = last["gaussian"].data["seed"].reshape(1)
+    seed, _, m = _block_seeds(last["gaussian"].data["seed"], last["gaussian"].m)[0]
+    seeds = seed.reshape(1)
     S = gaussian_s_dense(seeds, m, n)[0]        # the yardstick's S, built outside the timing
     recs = [_measure(f"gaussian_sa single problem, shared A (m={m})",
-                     lambda: gaussian_sa_cuda(A, seeds, m),
+                     lambda: ops.gaussian_sa(A, seeds, m),
                      lambda: gaussian_sa_ref(A, seeds, m),
                      4 * n * d + 4 * m * d, 2.0 * m * n * d, GAUSSIAN_REL_TOL,
                      library=lambda: torch.mm(S, A))]
@@ -1465,16 +1469,16 @@ def phase_paper(smi):
                      float(n * int(math.log2(n)) * d), FWHT_REL_TOL,
                      library=lambda: H @ Z)]
     del H
-    rows.append(_row("fwht (unscaled)", src + "fwht.cu", "src/repro/kernels/fwht.py:30", recs,
-                     launches=launches["_fwht_kernel"]))
+    rows.append(_row("fwht (unscaled; srht apply_t, off the adaptive path)", src + "fwht.cu",
+                     "src/repro/kernels/fwht.py:30", recs, launches=launches["_fwht_kernel"]))
     sj = last["sjlt"]
     M = sj.m
-    tgt, sg = sj.data["rows"][0].to(torch.int32), sj.data["signs"][0]
+    tgt, sg = sj.data["rows"][0], sj.data["signs"][0]      # int64 rows, as the path's
 
     def index_add():
-        return torch.zeros((M, d), device=dev).index_add_(0, tgt.long(), A * sg[:, None])
-    recs = [_measure(f"sjlt single problem (m={M})", lambda: ksj.sjlt_cuda(A, tgt, sg, M),
-                     lambda: ksj.sjlt_ref(A, tgt, sg, M), 4 * n * d + 8 * n + 4 * M * d,
+        return torch.zeros((M, d), device=dev).index_add_(0, tgt, A * sg[:, None])
+    recs = [_measure(f"sjlt single problem (m={M})", lambda: ops.sjlt_apply(A, tgt, sg, M),
+                     lambda: ksj.sjlt_ref(A, tgt, sg, M), 4 * n * d + 12 * n + 4 * M * d,
                      2.0 * n * d, SJLT_REL_TOL, library=index_add)]
     rows.append(_row("sjlt (B = 1)", src + "sjlt.cu", "src/repro/kernels/sjlt.py:72", recs,
                      launches=launches["_sjlt_kernel"]))
@@ -1514,9 +1518,8 @@ def phase_sharded(smi):
              for f, c in SHARD_PASSES]
     tasks.append(("pod", "service", dict(requests=POD_TRAFFIC, service=dict(batch_size=16))))
     t0 = time.perf_counter()
-    res = run_ranks("repro_torch.launch.sharded:run_tasks", SHARD_K,
-                    {"device": "cuda", "tasks": tasks}, backend="gloo", device="cuda",
-                    timeout=600)
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", SHARD_K, {"tasks": tasks},
+                    backend="gloo", device="cuda", timeout=600)
     print(f"[sharded] {SHARD_K} gloo ranks on one card ran their tasks in "
           f"{time.perf_counter() - t0:.1f} s (each process's start included)")
     for f, c in SHARD_PASSES:
@@ -1552,12 +1555,18 @@ def phase_sharded(smi):
     same = all(torch.equal(a["x"], b["x"]) for r in res[1:]
                for a, b in zip(pod["answers"], r["pod"]["answers"]))
     m = sorted(a["m_final"] for a in pod["answers"])
-    print(f"[sharded] pod-scale class (65536, 256, 512, srht): {len(reqs)} requests OK on "
+    kept = max(rows for r in res for rows in r["pod"]["queued_rows"])
+    print(f"[sharded] pod-scale class (65536, 256, 512, srht): {len(pod['answers'])} requests "
+          f"OK on "
           f"{SHARD_K} ranks in {pod['wall_s'] * 1e3:.1f} ms of flush ({pod['stats']['batches']} "
           f"batch), m_final {m[0]}/{m[len(m) // 2]}/{m[-1]}, worst answer {worst:.3f} of its "
           f"ridge gate; every rank the same answers {same}")
+    print(f"[sharded] each rank queued at most {kept} of a request's 65536 rows")
     if not same:
         raise SystemExit("chip_smoke: the sharded service's ranks disagree")
+    if kept > 65536 // SHARD_K:
+        raise SystemExit(f"chip_smoke: a rank of the sharded service queued {kept} rows of "
+                         f"a request, more than its {65536 // SHARD_K}")
     del q, A, reqs
     torch.cuda.empty_cache()
 
@@ -1582,7 +1591,7 @@ def phase_nccl():
     ladder = doubling_ladder(m_max)
     q_cpu = Quadratic(A=q.A.cpu(), b=q.b.cpu(), nu=q.nu.cpu(), lam_diag=q.lam_diag.cpu(),
                       batched=True)
-    res = run_ranks("repro_torch.launch.sharded:run_tasks", 1, {"device": "cuda", "tasks": [
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", 1, {"tasks": [
         ("g", "pass", dict(q=q_cpu, seeds=seeds.cpu(), ladder=ladder, sketch="gaussian",
                            compute_dtype="fp32"))]}, backend="nccl", device="cuda", timeout=300)
     prov = get_provider("gaussian")

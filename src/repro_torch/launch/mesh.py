@@ -18,8 +18,11 @@ kills every rank and raises with the failing rank's traceback. ``job`` is a
 ``"module:function"`` name, imported in each child: keep rank programs in
 modules that import only the port (``launch.sharded``). ``backend`` is
 ``"gloo"`` (the CPU, or K ranks that share one card: NCCL does not put two
-ranks on one GPU) or ``"nccl"``; ``device`` is where each rank computes
-(``cuda`` means ``cuda:(rank mod the card count)``).
+ranks on one GPU) or ``"nccl"``; ``device`` is where each rank computes (default ``cuda``,
+which means ``cuda:(rank mod the card count)`` and raises without a card;
+``"cpu"`` only when asked for). A rank program reads its device from the
+mesh (``rank_device``), so the device is given once, to ``run_ranks``.
+Each rank runs its torch ops on one thread.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.distributed import data_axes, data_index, n_data_shards  # noqa: F401
+from repro_torch.device import resolve_device
 
 
 def _init_mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...]):
@@ -47,10 +51,19 @@ def _init_mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...])
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def make_host_mesh(model: int | None = None, *, device_type: str = "cpu"):
+def rank_device(mesh) -> torch.device:
+    """This rank's device: the mesh's device type, on a card the rank's
+    current one (``run_ranks`` sets it)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def make_host_mesh(model: int | None = None, *, device_type: str | None = None):
     """A (data, model) mesh over every rank of the default process group:
     model 2 or 4 when the rank count allows (as the reference picks it),
-    else 1."""
+    else 1. ``device_type`` None means ``cuda``."""
+    device_type = resolve_device(device_type).type
     n = dist.get_world_size()
     if model is None:
         model = 1
@@ -60,11 +73,13 @@ def make_host_mesh(model: int | None = None, *, device_type: str = "cpu"):
     return _init_mesh(device_type, (n // model, model), ("data", "model"))
 
 
-def make_elastic_mesh(n_devices: int, *, device_type: str = "cpu"):
+def make_elastic_mesh(n_devices: int, *, device_type: str | None = None):
     """The (data, model) mesh ``ft.resilience.plan_mesh_shape`` plans for
-    ``n_devices`` live ranks (the default group's size)."""
+    ``n_devices`` live ranks (the default group's size); ``device_type``
+    None means ``cuda``."""
     from repro_torch.ft.resilience import plan_mesh_shape
 
+    device_type = resolve_device(device_type).type
     if n_devices != dist.get_world_size():
         raise ValueError(f"an elastic mesh of {n_devices} ranks needs a process "
                          f"group of that size, not {dist.get_world_size()}")
@@ -83,16 +98,16 @@ def _src_dir() -> str:
 
 
 def run_ranks(job: str, world: int, payload=None, *, backend: str = "gloo",
-              device: str = "cpu", timeout: float = 600.0, threads: int = 1) -> list:
+              device=None, timeout: float = 600.0) -> list:
     """Run ``job(mesh, payload)`` on ``world`` ranks (module docstring);
     returns the rank results in rank order. ``payload`` and the results
-    cross the process boundary through ``torch.save``; ``threads`` is each
-    rank's torch thread count."""
+    cross the process boundary through ``torch.save``."""
+    device = resolve_device(device).type
     tmp = Path(tempfile.mkdtemp(prefix="repro_torch_ranks_"))
     procs = []
     try:
         torch.save(payload, tmp / "payload.pt")
-        env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+        env = dict(os.environ, OMP_NUM_THREADS="1")
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_src_dir(), os.environ.get("PYTHONPATH")) if p)
         for rank in range(world):
@@ -100,7 +115,7 @@ def run_ranks(job: str, world: int, payload=None, *, backend: str = "gloo",
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "repro_torch.launch.mesh", "--job", job,
                      "--rank", str(rank), "--world", str(world), "--dir", str(tmp),
-                     "--backend", backend, "--device", device, "--threads", str(threads)],
+                     "--backend", backend, "--device", device],
                     env=env, stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
@@ -128,10 +143,10 @@ def _rank_main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="one rank of launch.mesh.run_ranks")
     for flag in ("--job", "--dir", "--backend", "--device"):
         ap.add_argument(flag, required=True)
-    for flag in ("--rank", "--world", "--threads"):
+    for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, required=True)
     args = ap.parse_args(argv)
-    torch.set_num_threads(args.threads)
+    torch.set_num_threads(1)
     tmp = Path(args.dir)
     try:
         if args.device == "cuda":

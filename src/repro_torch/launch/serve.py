@@ -150,9 +150,11 @@ def mesh_rank(mesh, payload: dict) -> str:
     import contextlib
     import io
 
+    from repro_torch.launch.mesh import rank_device
+
     args = argparse.Namespace(**payload)
-    if args.device in (None, "cuda"):
-        args.device = f"cuda:{torch.cuda.current_device()}"
+    args.device = str(rank_device(mesh))
+    if args.device.startswith("cuda"):
         torch.set_float32_matmul_precision("highest")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -163,12 +165,9 @@ def mesh_rank(mesh, payload: dict) -> str:
 def serve_mesh(args) -> None:
     from repro_torch.launch.mesh import run_ranks
 
-    device = args.device or "cuda"
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--mesh on cuda needs a card; pass --device cpu")
     backend = args.backend or "gloo"
     texts = run_ranks("repro_torch.launch.serve:mesh_rank", args.mesh, vars(args),
-                      backend=backend, device=torch.device(device).type)
+                      backend=backend, device=args.device)
     print(texts[0], end="")
     if any(t.splitlines()[1:] != texts[0].splitlines()[1:] for t in texts[1:]):
         raise SystemExit("the ranks' certificates differ")

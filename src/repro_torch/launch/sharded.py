@@ -7,8 +7,9 @@ payload (every rank holds the same one), cuts its own row block out of it
 the CPU. The tests, ``chip_smoke.py`` and ``launch/serve.py --mesh`` drive
 the sharded code through these, so a spawned rank imports only the port.
 
-Payload: ``{"device": "cpu" | "cuda", "tasks": [(name, kind, args), ...]}``
-with ``kind`` one of ``TASKS``:
+Payload: ``{"tasks": [(name, kind, args), ...]}`` with ``kind`` one of
+``TASKS``; each rank computes on its mesh's device (``launch.mesh.rank_device``,
+the ``device`` given to ``run_ranks``):
 
 * ``"pass"``: args ``q`` (the full batched problem on the CPU), ``seeds``,
   ``ladder``, ``sketch``, ``compute_dtype`` → ``grams`` (the summed pass),
@@ -23,12 +24,13 @@ with ``kind`` one of ``TASKS``:
   keywords (``kw``) → ``x`` and ``stats``, through ``sharded_padded_solve``;
 * ``"robust"``: the same through ``robust_padded_solve_batched``;
 * ``"service"``: ``requests`` [(A, y, ν)] (or the keywords of
-  ``ridge_requests``, which each rank then draws on its device), optional
-  ``glm`` [(A, y, ν)]
-  (logistic) and ``paths`` [(A, y, ν grid)], ``service`` (``SolverService``
-  keywords) → per request x, δ̃, m_final, iters, status (a GLM answer its
-  decrement and convergence, a path its points' x and statuses), the
-  service's stats and the flush's wall seconds;
+  ``ridge_requests``, which each rank then draws on its device one at a
+  time, submitting each before it draws the next), optional ``glm``
+  [(A, y, ν)] (logistic) and ``paths`` [(A, y, ν grid)], ``service``
+  (``SolverService`` keywords) → per request x, δ̃, m_final, iters, status
+  (a GLM answer its decrement and convergence, a path its points' x and
+  statuses), the service's stats, the rows of each ridge and path request
+  that the rank kept queued, and the flush's wall seconds;
 * ``"meshes"``: no args → the shapes, data dims and this rank's data index
   of ``launch.mesh.make_host_mesh()`` and ``make_elastic_mesh(world)``;
 * ``"imports"``: no args → the top-level packages of JAX or the reference
@@ -145,10 +147,12 @@ def ridge_request(g: torch.Generator, device, n_range, d_range, decay: float = 0
 
 
 def ridge_requests(seed: int, count: int, n_range, d_range, device, decay: float = 0.95):
-    """``count`` ``ridge_request``s from a generator seeded ``seed``: the
-    same requests in every process that asks on the same kind of device."""
+    """Yields ``count`` ``ridge_request``s, one at a time, from a generator
+    seeded ``seed``: the same requests in every process that asks on the
+    same kind of device."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return [ridge_request(g, device, n_range, d_range, decay) for _ in range(count)]
+    for _ in range(count):
+        yield ridge_request(g, device, n_range, d_range, decay)
 
 
 def _service(mesh, dev, a):
@@ -161,13 +165,15 @@ def _service(mesh, dev, a):
     ids = [svc.submit(A.to(dev), y.to(dev), nu) for A, y, nu in reqs]
     glm = [svc.submit_glm(A.to(dev), y.to(dev), nu) for A, y, nu in a.get("glm", ())]
     paths = [svc.submit_path(A.to(dev), y.to(dev), nus) for A, y, nus in a.get("paths", ())]
+    queued = [r.A.shape[0] for store in (svc._queues, svc._path_queues)
+              for queue in store.values() for r in queue]
     dist.barrier()
     _sync(dev)
     t0 = time.perf_counter()
     sols = svc.flush()
     _sync(dev)
     wall = time.perf_counter() - t0
-    return {"wall_s": wall, "stats": dict(svc.stats),
+    return {"wall_s": wall, "stats": dict(svc.stats), "queued_rows": queued,
             "answers": [dict(x=sols[i].x, delta_tilde=sols[i].delta_tilde,
                              m_final=sols[i].m_final, iters=sols[i].iters,
                              status=sols[i].status, shape_class=tuple(sols[i].shape_class))
@@ -205,9 +211,10 @@ TASKS = {"pass": _pass, "weighted_gram": _weighted_gram, "block_sketch": _block_
 
 def run_tasks(mesh, payload: dict) -> dict:
     """Every task of the payload, in order, on this rank (module docstring)."""
-    dev = torch.device(payload.get("device", "cpu"))
+    from repro_torch.launch.mesh import rank_device
+
+    dev = rank_device(mesh)
     if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": D.data_index(mesh)}

@@ -61,12 +61,17 @@ does not depend on what it is packed with.
 Sharded mode (``mesh=``, a ``DeviceMesh`` of the ranks that serve together,
 ``core.distributed``): every rank runs the same service on the same
 submissions, so each packs the same batch with the same b and seeds as one
-device would, but keeps only its row block of the packed A (its rows of
-each request, zero-padded). Every solve then runs with ``mesh=``: one
-all-reduce each for the ladder Grams and the true Gram, and every rank
-returns the same answers. The default classes add the pod-scale tail
-(65536, 256, 512, srht), which one device need not hold whole; every
-class's n must divide by the data-shard count. A flush with a deadline is
+device would. From ``submit`` on, a rank keeps only its row block of each
+ridge and path request (its rows of the class's n, copied out, with
+b = Aᵀy and, under the ladder cache, the fingerprint taken from the whole
+request first), so its queue and packed A hold n/K rows of each request.
+The caller still hands each request in whole, one at a time. GLM requests
+stay whole on every rank: the Newton driver's gradient and weights are
+replicated, and only its inner systems are cut to the rank's rows. Every
+solve then runs with ``mesh=``: one all-reduce each for the ladder Grams
+and the true Gram, and every rank returns the same answers. The default
+classes add the pod-scale tail (65536, 256, 512, srht); every class's n
+must divide by the data-shard count. A flush with a deadline is
 refused in this mode (expiring or dispatching a chunk would be a decision
 on each rank's own clock), and so is a chunk with a checkpoint directory or
 a preemption flag (the segmented driver's rule under a mesh).
@@ -129,6 +134,10 @@ class RidgeRequest:
     nu: float                # regularization ν
     lam_diag: torch.Tensor | None = None
     deadline: float | None = None   # absolute time.perf_counter() stamp
+    # sharded mode: A and y are this rank's row block, b = Aᵀy of the whole
+    # request and fp its ladder-cache fingerprint (None: taken from A and y)
+    b: torch.Tensor | None = None
+    fp: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +148,8 @@ class PathRequest:
     nus: tuple               # grid of ν, walked in order (strong → weak)
     lam_diag: torch.Tensor | None = None
     deadline: float | None = None   # absolute time.perf_counter() stamp
+    b: torch.Tensor | None = None   # as RidgeRequest's
+    fp: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,8 +372,8 @@ class SolverService:
                 status=SolveStatus.REJECTED.name, converged=False))
             return rid
         self._queues[cls].append(RidgeRequest(
-            req_id=rid, A=A, y=y, nu=nu, lam_diag=lam_diag,
-            deadline=self._deadline(deadline_s)))
+            req_id=rid, nu=nu, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
+            **self._rows_kept(cls, A, y, lam_diag)))
         return rid
 
     def submit_glm(self, A, y, nu, family: str = "logistic", lam_diag=None, *,
@@ -433,9 +444,27 @@ class SolverService:
                 status=SolveStatus.REJECTED.name, converged=False, sketch_passes=0))
             return rid
         self._path_queues.setdefault((cls, len(nus)), []).append(PathRequest(
-            req_id=rid, A=A, y=y, nus=nus, lam_diag=lam_diag,
-            deadline=self._deadline(deadline_s)))
+            req_id=rid, nus=nus, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
+            **self._rows_kept(cls, A, y, lam_diag)))
         return rid
+
+    def _rows_kept(self, cls: ShapeClass, A, y, lam_diag) -> dict:
+        """The fields of a queued ridge or path request that hold its data:
+        A and y whole, or in sharded mode this rank's row block of the
+        class's n (copied, so the whole request can go), b = Aᵀy and, under
+        the ladder cache, the fingerprint of the whole request."""
+        if self.mesh is None:
+            return dict(A=A, y=y)
+        from repro_torch.core.distributed import data_index, n_data_shards
+
+        n_rows = cls.n // n_data_shards(self.mesh)
+        r0 = data_index(self.mesh) * n_rows
+        fp = None
+        if self.ladder_cache:
+            fp = self._ladder_fingerprint(A, lam_diag, cls, cls.sketch or self.sketch,
+                                          cls.compute_dtype or self.compute_dtype)
+        return dict(A=A[r0:r0 + n_rows].clone(), y=y[r0:r0 + n_rows].clone(), b=A.T @ y,
+                    fp=fp)
 
     def _stage(self, A, y, lam_diag):
         """A, y and Λ as fp32 tensors on the service's device."""
@@ -511,24 +540,23 @@ class SolverService:
         """Pad each request to the class shape and stack on the device; pad
         the batch to ``batch_size`` with trivial (b = 0) problems. The real
         slots' sketch ids are their request ids, or ``slot_ids`` (the ladder
-        cache keys slots by fingerprint). Sharded, q's A is this rank's row
-        block of the packed batch, b the whole batch's. Returns (q, seeds)."""
+        cache keys slots by fingerprint). Sharded, the requests hold this
+        rank's row blocks (``_rows_kept``), so q's A is this rank's row block
+        of the packed batch and b the whole batch's. Returns (q, seeds)."""
         B, dev = self.batch_size, self.device
-        r0, n_rows = 0, cls.n
+        n_rows = cls.n
         if self.mesh is not None:
-            from repro_torch.core.distributed import data_index, n_data_shards
+            from repro_torch.core.distributed import n_data_shards
 
             n_rows = cls.n // n_data_shards(self.mesh)
-            r0 = data_index(self.mesh) * n_rows
         A = torch.zeros((B, n_rows, cls.d), device=dev)
         b = torch.zeros((B, cls.d), device=dev)
         nu = torch.ones(B, device=dev)
         lam = torch.ones((B, cls.d), device=dev)
         for i, r in enumerate(reqs):
             ni, di = r.A.shape
-            block = r.A[r0:r0 + n_rows]
-            A[i, :block.shape[0], :di] = block
-            b[i, :di] = r.A.T @ r.y
+            A[i, :ni, :di] = r.A
+            b[i, :di] = r.A.T @ r.y if r.b is None else r.b
             nu[i] = r.nu
             if r.lam_diag is not None:
                 lam[i, :di] = r.lam_diag
@@ -719,7 +747,8 @@ class SolverService:
         skipped); grams and gram_full are None without the cache."""
         if not self.ladder_cache:
             return (*self._pack(cls, reqs), None, None, False)
-        fps = [self._ladder_fingerprint(r.A, r.lam_diag, cls, sketch, cd) for r in reqs]
+        fps = [r.fp or self._ladder_fingerprint(r.A, r.lam_diag, cls, sketch, cd)
+               for r in reqs]
         q, seeds = self._pack(cls, reqs, slot_ids=[self._fp_slot_id(f) for f in fps])
         return (q, seeds, *self._ladder_assets(cls, fps, q, seeds, sketch, cd))
 
@@ -738,8 +767,8 @@ class SolverService:
         sketch = cls.sketch or self.sketch
         cd = cls.compute_dtype or self.compute_dtype
         # the ridge packer, with a placeholder ν: the path reads the grid
-        proxies = [RidgeRequest(req_id=r.req_id, A=r.A, y=r.y, nu=1.0,
-                                lam_diag=r.lam_diag, deadline=r.deadline) for r in reqs]
+        proxies = [RidgeRequest(req_id=r.req_id, A=r.A, y=r.y, nu=1.0, lam_diag=r.lam_diag,
+                                deadline=r.deadline, b=r.b, fp=r.fp) for r in reqs]
         q, seeds, grams, gfull, skipped = self._pack_cached(cls, proxies, sketch, cd)
         nus = torch.ones((P, self.batch_size))
         for i, r in enumerate(reqs):

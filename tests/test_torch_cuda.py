@@ -728,7 +728,7 @@ def test_sharded_pass_on_four_gloo_ranks_sharing_the_card(dev):
     seeds = torch.tensor([1, 2, 3, 4], dtype=torch.int64)
     ladder = doubling_ladder(m_max)
     cases = [("gaussian", "fp32"), ("sjlt", "int8"), ("srht", "bf16")]
-    res = run_ranks("repro_torch.launch.sharded:run_tasks", K, {"device": "cuda", "tasks": [
+    res = run_ranks("repro_torch.launch.sharded:run_tasks", K, {"tasks": [
         (f"{f}/{c}", "pass", dict(q=q, seeds=seeds, ladder=ladder, sketch=f, compute_dtype=c))
         for f, c in cases]}, backend="gloo", device="cuda", timeout=600)
     qd = Quadratic(A=q.A.to(dev), b=q.b.to(dev), nu=q.nu.to(dev), lam_diag=q.lam_diag.to(dev),

@@ -97,7 +97,7 @@ def eight():
                                            kw=dict(m_max=64, sketch="sjlt", max_retries=1))))
     tasks.append(("meshes", "meshes", {}))
     tasks.append(("imports", "imports", {}))
-    return run_ranks(JOB, K, {"device": "cpu", "tasks": tasks}, timeout=600)
+    return run_ranks(JOB, K, {"tasks": tasks}, device="cpu", timeout=600)
 
 
 def _emulated_grams(case):
@@ -236,9 +236,9 @@ def service_run():
         A = torch.randn(200, 8, generator=g) / 8 ** 0.5
         glm.append((A, (torch.rand(200, generator=g) < torch.sigmoid(A @ torch.randn(8, generator=g))).float(), 0.2))
     paths = [(A, y, (1.0, 0.3, 0.1)) for A, y, _ in _requests(g, (100, 256), (4, 16), 2)]
-    payload = {"device": "cpu", "tasks": [("svc", "service", dict(
+    payload = {"tasks": [("svc", "service", dict(
         requests=reqs, glm=glm, paths=paths, service=SVC))]}
-    return reqs, glm, paths, run_ranks(JOB, 4, payload, timeout=600)
+    return reqs, glm, paths, run_ranks(JOB, 4, payload, device="cpu", timeout=600)
 
 
 def _energy_err(x, A, y, nu) -> float:
@@ -261,6 +261,18 @@ def test_sharded_service_answers(service_run):
     for r in res[1:]:
         for a, b in zip(answers, r["svc"]["answers"]):
             assert torch.equal(a["x"], b["x"]) and a["m_final"] == b["m_final"]
+
+
+def test_sharded_service_queues_only_the_ranks_rows(service_run):
+    """Rank k keeps rows [k·n/K, (k+1)·n/K) of the class's n of every queued
+    ridge and path request, not the whole request."""
+    reqs, _, paths, res = service_run
+    for r in res:
+        k, want = r["rank"], []
+        for A, _, _ in reqs + paths:
+            rows = next(c.n for c in CLASSES if A.shape[0] <= c.n) // 4
+            want.append(min(max(A.shape[0] - k * rows, 0), rows))
+        assert sorted(r["svc"]["queued_rows"]) == sorted(want)
 
 
 def test_sharded_service_matches_the_emulated_service(service_run):
@@ -289,11 +301,14 @@ def test_sharded_service_glm_and_paths(service_run):
 
 
 class _FakeMesh:
-    """A mesh's names and shape, enough for the checks made before any
-    collective."""
+    """A mesh's names, shape and rank 0's place on it, enough for the checks
+    made before any collective."""
 
     mesh_dim_names = ("data",)
     shape = (4,)
+
+    def get_local_rank(self, dim):
+        return 0
 
 
 def test_sharded_service_refusals():

@@ -95,6 +95,16 @@ def test_paper_literal_and_sharded_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         adaptive_solve(q, AdaptiveConfig())
     assert make_sketch("sjlt", 4, 16, 0, device="cpu").data["rows"].device.type == "cpu"
+    # the rank launcher and the mesh builders: cuda unless asked for the CPU
+    # (all three raise before they start a process or touch a group)
+    from repro_torch.launch.mesh import make_elastic_mesh, make_host_mesh, run_ranks
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_ranks("repro_torch.launch.sharded:run_tasks", 1, {"tasks": []})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_elastic_mesh(1)
 
 
 def test_spawned_ranks_import_no_jax():
@@ -103,5 +113,5 @@ def test_spawned_ranks_import_no_jax():
     from repro_torch.launch.mesh import run_ranks
 
     out = run_ranks("repro_torch.launch.sharded:run_tasks", 1,
-                    {"device": "cpu", "tasks": [("imports", "imports", {})]}, timeout=300)
+                    {"tasks": [("imports", "imports", {})]}, device="cpu", timeout=300)
     assert out == [{"rank": 0, "imports": []}]
