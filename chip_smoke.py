@@ -106,7 +106,26 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    (65536, 256, 512, srht) through the sharded service under the ridge
    gate; (c) a one-rank NCCL group, its pass bitwise the one-device
    provider's;
-9. summary: one ``{"kernels": [...]}`` line, then the device line last.
+9. the port's invariant audit on the card (``analysis.audit``): (a) the full
+   registry (the reference's 55 entry points, the sharded ones in a
+   one-rank NCCL group) passes every rule, every negative control fails
+   under its own rule, and the kernel launches each entry point's run
+   counted are printed; (b) at the top class (16, 4096, 256, 512) and the
+   SRHT class (16, 16384, 256, 512), phase 4's traffic packed by the
+   service, every family × compute dtype × {unweighted, weighted}
+   one-touch pass's peak device memory above its entry (after a warm call
+   of the same pass), beside the dense
+   S's bytes and the Gaussian budget of the one-touch rule, the Gaussian's
+   fp32 and bf16 passes gated under that budget (int8's quantization
+   temporaries are the rule's documented allowance: printed, gated under
+   the budget plus them); the launch counts set to 0 before (b) and read
+   after it, every leg launched; (c) the peak of one whole top-class flush
+   in gaussian/fp32 and one SRHT-class flush in srht/fp32; (d) the segment
+   state audit (an 8-trip segment at the top class allocates less than
+   ``pre.pinvs``), the rebuild sentinel on a second flush of each class
+   (nothing compiled or opened), and ``torch.cuda.memory_reserved()``'s
+   growth over that second flush (printed, no gate);
+10. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -122,16 +141,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16 on
-# the tensor cores (the reduced legs multiply bf16 values into fp32 sums),
-# HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-# Issue rate of the H100 SXM: 132 SMs × 4 schedulers × 32 lanes at the
-# 1.98 GHz boost clock (the clock of PEAK_FP32_FLOPS = 132·128·2·1.98e9), in
-# thread instructions per second
-PEAK_INSTR = 132 * 4 * 32 * 1.98e9
+# the H100 SXM peaks and each Pallas body's (FLOPs, bytes) at given shapes
+from repro_torch.analysis.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_FP32_FLOPS,
+    PEAK_INSTR,
+    bound_ms,
+    fwht_terms,
+    gauss_sa_terms,
+    sjlt_terms,
+)
+
 # Operations the Gaussian kernel spends on one S entry, counted by hand in
 # its source (csrc/gaussian_sa.cu: mix32, uniforms, radius, cosine), taken
 # as one instruction each: the counter and two murmur3 finalizers 18, the
@@ -166,11 +186,6 @@ SJLT_REL_TOL = 1e-5
 # is not what limits the accuracy.
 SOLVE_REL_TOL = 1e-3
 FP32_UNIT = 2.0 ** -24
-
-
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_ms(fn, reps: int, warm: int = 2, hide_host: bool = False) -> float:
@@ -237,7 +252,7 @@ def _compare(name, got, want, tol):
     return err
 
 
-def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
+def _measure(label, kern, plain, terms, tol, peak=PEAK_FP32_FLOPS,
              library=None, library_ms=None):
     """Hold a kernel call against its plain version and time both, and the
     one-call PyTorch yardstick ``library`` where there is one (or take its
@@ -247,7 +262,7 @@ def _measure(label, kern, plain, nbytes, flops, tol, peak=PEAK_FP32_FLOPS,
     card_ms = time_ms(kern, reps=10, hide_host=True)
     lms = library_ms if library is None else time_ms(library, reps=10)
     lcard = None if library is None else time_ms(library, reps=10, hide_host=True)
-    bms, by = bound_ms(flops, nbytes, peak)
+    bms, by = bound_ms(*terms, peak)
     print(f"[kernel] {label}: {ms:.4f} ms ({card_ms:.4f} ms on the card alone), "
           f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
           + ("" if lms is None else f", library yardstick {lms:.4f} ms")
@@ -323,8 +338,6 @@ def phase_kernels():
     seeds = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev, dtype=torch.int64)
     w = torch.rand((B, n), generator=g, device=dev) + 0.5
     ws = torch.sqrt(w)
-    flops = 2.0 * B * m * n * d
-    out_b = 4 * B * m * d + 8 * B
     bad = entry_mismatches()
     print(f"[kernel] gaussian_sa Box–Muller: {bad} of the 2·2^24 values of u1 and u2 "
           f"give another radius sqrt(-2·log u1) or cosine cos(2π·u2) than the CUDA "
@@ -346,17 +359,17 @@ def phase_kernels():
     _repeats("gaussian_sa", lambda: ops.gaussian_sa(A, seeds, m))
     recs = [
         _measure("gaussian_sa per-problem A", lambda: ops.gaussian_sa(A, seeds, m),
-                 lambda: gaussian_sa_ref(A, seeds, m), 4 * B * n * d + out_b, flops,
+                 lambda: gaussian_sa_ref(A, seeds, m), gauss_sa_terms(B, n, d, m),
                  GAUSSIAN_REL_TOL, library=lambda: torch.bmm(S, A)),
         _measure("gaussian_sa shared A", lambda: ops.gaussian_sa(A_sh, seeds, m),
-                 lambda: gaussian_sa_ref(A_sh, seeds, m), 4 * n * d + out_b, flops,
+                 lambda: gaussian_sa_ref(A_sh, seeds, m), gauss_sa_terms(B, n, d, m, shared=True),
                  GAUSSIAN_REL_TOL, library=lambda: torch.matmul(S.reshape(B * m, n), A_sh)),
     ]
     rows.append(_row("gaussian_sa", src + "gaussian_sa.cu", ref_g + ":210", recs))
     recs = [_measure("gaussian_sa.weighted (row weights, Pallas row 2)",
                      lambda: ops.gaussian_sa(A, seeds, m, row_weights=w),
                      lambda: gaussian_sa_ref(A, seeds, m, scale=ws),
-                     4 * (B * n * d + B * n) + out_b, flops + B * m * n, GAUSSIAN_REL_TOL,
+                     gauss_sa_terms(B, n, d, m, scaled=True), GAUSSIAN_REL_TOL,
                      library=lambda: torch.bmm(S_w, A))]
     rows.append(_row("gaussian_sa.weighted", src + "gaussian_sa.cu", ref_g + ":234", recs))
     # bf16 leg as the service calls it: fp32 A rounded to bf16 on load; and
@@ -368,18 +381,19 @@ def phase_kernels():
         _measure("gaussian_sa.bf16 (fp32 A)",
                  lambda: gaussian_sa_cuda(A, seeds, m, compute_dtype="bf16"),
                  lambda: gaussian_sa_ref(A, seeds, m, compute_dtype="bf16"),
-                 4 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                 gauss_sa_terms(B, n, d, m), GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
                  library=lambda: torch.bmm(S_bf, A_bf)),
         _measure("gaussian_sa.bf16 (bf16 A)",
                  lambda: gaussian_sa_cuda(A_bf, seeds, m, compute_dtype="bf16"),
                  lambda: gaussian_sa_ref(A_bf, seeds, m, compute_dtype="bf16"),
-                 2 * B * n * d + out_b, flops, GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
+                 gauss_sa_terms(B, n, d, m, a_itemsize=2), GAUSSIAN_REDUCED_REL_TOL,
+                 PEAK_BF16_FLOPS,
                  library=lambda: torch.bmm(S_bf, A_bf)),
     ]
     recs_w = [_measure("gaussian_sa.bf16.weighted (row weights, Pallas row 2)",
                        lambda: gaussian_sa_cuda(A, seeds, m, scale=ws, compute_dtype="bf16"),
                        lambda: gaussian_sa_ref(A, seeds, m, scale=ws, compute_dtype="bf16"),
-                       4 * (B * n * d + B * n) + out_b, flops + B * m * n,
+                       gauss_sa_terms(B, n, d, m, scaled=True),
                        GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
                        library=lambda: torch.bmm(S_w_bf, A_bf))]
     # the same bmm with S generated inside the timing by the plain hash
@@ -403,7 +417,7 @@ def phase_kernels():
                                               compute_dtype="int8"),
                      lambda: gaussian_sa_ref(codes, seeds, m, scale=a_scales,
                                              compute_dtype="int8"),
-                     B * n * d + 4 * B * n + out_b, flops + B * m * n,
+                     gauss_sa_terms(B, n, d, m, a_itemsize=1, scaled=True),
                      GAUSSIAN_REDUCED_REL_TOL, PEAK_BF16_FLOPS,
                      library=lambda: torch.bmm(S_a, codes_bf))]
     del S, S_w, S_a, codes_bf
@@ -424,7 +438,7 @@ def phase_kernels():
     print("[kernel] sjlt yardstick: the dense signed one-hot S (B, M, n) times A, S built "
           "outside the timing; bf16 operands with an fp32 result")
 
-    def sjlt_leg(label, A_in, t_, s_, cd, a_bytes, peak):
+    def sjlt_leg(label, A_in, t_, s_, cd, a_itemsize, peak):
         # the stream the kernel reads: int8 quantizes A and folds the scales
         # into the signs, bf16 rounds the signs; A_in itself stays as it is
         A_s, s_s = ksj.fold_stream(A_in, s_, cd)
@@ -447,30 +461,29 @@ def phase_kernels():
         want = plain()
         lerr = float((library().float() - want).abs().max()) / float(want.abs().max())
         print(f"[kernel] {label} yardstick: rel err {lerr:.3e} against the plain version")
-        return _measure(label, kern, plain, a_bytes + 8 * Bq * n + 4 * Bq * M * d,
-                        2.0 * Bq * n * d, SJLT_REL_TOL, peak, library=library)
+        terms = sjlt_terms(Bq, n, d, M, a_itemsize=a_itemsize, shared=A_in.dim() == 2)
+        return _measure(label, kern, plain, terms, SJLT_REL_TOL, peak, library=library)
 
     rows.append(_row("sjlt", src + "sjlt.cu", ref_s + ":140", [
-        sjlt_leg("sjlt", A, tgt, sg, "fp32", 4 * B * n * d, PEAK_FP32_FLOPS),
-        sjlt_leg("sjlt shared A", A_sh, tgt, sg, "fp32", 4 * n * d, PEAK_FP32_FLOPS),
+        sjlt_leg("sjlt", A, tgt, sg, "fp32", 4, PEAK_FP32_FLOPS),
+        sjlt_leg("sjlt shared A", A_sh, tgt, sg, "fp32", 4, PEAK_FP32_FLOPS),
         sjlt_leg("sjlt single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "fp32",
-                 4 * n * d, PEAK_FP32_FLOPS)]))
+                 4, PEAK_FP32_FLOPS)]))
     rows.append(_row("sjlt.bf16", src + "sjlt.cu", ref_s + ":140", [
-        sjlt_leg("sjlt.bf16", A, tgt, sg, "bf16", 4 * B * n * d, PEAK_BF16_FLOPS),
-        sjlt_leg("sjlt.bf16 (bf16 A)", A_bf, tgt, sg, "bf16", 2 * B * n * d, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.bf16", A, tgt, sg, "bf16", 4, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.bf16 (bf16 A)", A_bf, tgt, sg, "bf16", 2, PEAK_BF16_FLOPS),
         sjlt_leg("sjlt.bf16 single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "bf16",
-                 4 * n * d, PEAK_BF16_FLOPS)]))
+                 4, PEAK_BF16_FLOPS)]))
     rows.append(_row("sjlt.int8", src + "sjlt.cu", ref_s + ":140", [
-        sjlt_leg("sjlt.int8", A, tgt, sg, "int8", B * n * d, PEAK_BF16_FLOPS),
+        sjlt_leg("sjlt.int8", A, tgt, sg, "int8", 1, PEAK_BF16_FLOPS),
         sjlt_leg("sjlt.int8 single problem (sjlt.py:72)", A_sh, tgt[:1], sg[:1], "int8",
-                 n * d, PEAK_BF16_FLOPS)]))
+                 1, PEAK_BF16_FLOPS)]))
     del A, A_sh, A_bf, w, codes, a_scales
 
     # FWHT at the SRHT class: B=16, n=16384, d=256, with the SRHT signs fused
     B, n, d = 16, 16384, 256
     X = torch.randn((B, n, d), generator=g, device=dev)
     s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
-    lg = n.bit_length() - 1
     print(f"[kernel] fwht at n={n}: {len(split_plan(n))} launch, clusters of "
           f"{cluster_plan(n)[1]} blocks of {cluster_plan(n)[0]} rows; resident clusters "
           f"{active_clusters(n)} (fp32 tile), "
@@ -484,11 +497,10 @@ def phase_kernels():
           f"{dense_ms:.4f} ms")
     recs = [
         _measure("fwht signs fused", lambda: ops.fwht_cols(X, row_scale=s),
-                 lambda: fwht_ref(X * s[:, :, None]), 4 * (2 * B * n * d + B * n),
-                 float(B * d * n * (lg + 1)), FWHT_REL_TOL, library_ms=dense_ms),
+                 lambda: fwht_ref(X * s[:, :, None]), fwht_terms(B, n, d, scaled=True),
+                 FWHT_REL_TOL, library_ms=dense_ms),
         _measure("fwht unscaled", lambda: ops.fwht_cols(X), lambda: fwht_ref(X),
-                 4 * 2 * B * n * d, float(B * d * n * lg), FWHT_REL_TOL,
-                 library_ms=dense_ms),
+                 fwht_terms(B, n, d), FWHT_REL_TOL, library_ms=dense_ms),
     ]
     rows.append(_row("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     # bf16 leg: fp32 A in, every stage rounded to bf16, a bf16 stack out; the
@@ -497,10 +509,10 @@ def phase_kernels():
     recs = [_measure("fwht.bf16 signs fused",
                      lambda: ops.fwht_cols(X, row_scale=s, compute_dtype="bf16"),
                      lambda: fwht_ref(X.to(bf) * s.to(bf)[:, :, None]),
-                     (4 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
+                     fwht_terms(B, n, d, out_itemsize=2, scaled=True),
                      FWHT_REL_TOL, library_ms=dense_ms),
             _measure("fwht.bf16 unscaled", lambda: ops.fwht_cols(X, compute_dtype="bf16"),
-                     lambda: fwht_ref(X.to(bf)), (4 + 2) * B * n * d, float(B * d * n * lg),
+                     lambda: fwht_ref(X.to(bf)), fwht_terms(B, n, d, out_itemsize=2),
                      FWHT_REL_TOL, library_ms=dense_ms)]
     rows.append(_row("fwht.bf16", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     # int8 leg: the codes in, their row scales fused with the signs
@@ -509,7 +521,7 @@ def phase_kernels():
     recs = [_measure("fwht.int8 signs·scales fused",
                      lambda: ops.fwht_cols(codes, row_scale=s8, compute_dtype="int8"),
                      lambda: fwht_ref(codes.to(bf) * s8.to(bf)[:, :, None]),
-                     (1 + 2) * B * n * d + 4 * B * n, float(B * d * n * (lg + 1)),
+                     fwht_terms(B, n, d, x_itemsize=1, out_itemsize=2, scaled=True),
                      FWHT_REL_TOL, library_ms=dense_ms)]
     rows.append(_row("fwht.int8", src + "fwht.cu", "src/repro/kernels/fwht.py:43", recs))
     del X, s, codes, a_scales, s8
@@ -1454,7 +1466,7 @@ def phase_paper(smi):
     recs = [_measure(f"gaussian_sa single problem, shared A (m={m})",
                      lambda: ops.gaussian_sa(A, seeds, m),
                      lambda: gaussian_sa_ref(A, seeds, m),
-                     4 * n * d + 4 * m * d, 2.0 * m * n * d, GAUSSIAN_REL_TOL,
+                     gauss_sa_terms(1, n, d, m, shared=True), GAUSSIAN_REL_TOL,
                      library=lambda: torch.mm(S, A))]
     del S
     rows.append(_row("gaussian_sa (B = 1, shared A)", src + "gaussian_sa.cu",
@@ -1465,9 +1477,8 @@ def phase_paper(smi):
     Z[sr.data["rows"]] = sr.apply(A)
     H = hadamard_dense(n, dev)
     recs = [_measure(f"fwht unscaled (srht apply_t, n={n}, d={d})",
-                     lambda: ops.fwht(Z), lambda: fwht_ref(Z), 8 * n * d,
-                     float(n * int(math.log2(n)) * d), FWHT_REL_TOL,
-                     library=lambda: H @ Z)]
+                     lambda: ops.fwht(Z), lambda: fwht_ref(Z), fwht_terms(1, n, d),
+                     FWHT_REL_TOL, library=lambda: H @ Z)]
     del H
     rows.append(_row("fwht (unscaled; srht apply_t, off the adaptive path)", src + "fwht.cu",
                      "src/repro/kernels/fwht.py:30", recs, launches=launches["_fwht_kernel"]))
@@ -1478,8 +1489,9 @@ def phase_paper(smi):
     def index_add():
         return torch.zeros((M, d), device=dev).index_add_(0, tgt, A * sg[:, None])
     recs = [_measure(f"sjlt single problem (m={M})", lambda: ops.sjlt_apply(A, tgt, sg, M),
-                     lambda: ksj.sjlt_ref(A, tgt, sg, M), 4 * n * d + 12 * n + 4 * M * d,
-                     2.0 * n * d, SJLT_REL_TOL, library=index_add)]
+                     lambda: ksj.sjlt_ref(A, tgt, sg, M),
+                     sjlt_terms(1, n, d, M, shared=True, index_itemsize=8), SJLT_REL_TOL,
+                     library=index_add)]
     rows.append(_row("sjlt (B = 1)", src + "sjlt.cu", "src/repro/kernels/sjlt.py:72", recs,
                      launches=launches["_sjlt_kernel"]))
     del q, A, Z
@@ -1603,6 +1615,141 @@ def phase_nccl():
         raise SystemExit("chip_smoke: the one-rank NCCL pass is not the one-device pass")
 
 
+AUDIT_CLASSES = (("top", 3, 512), ("SRHT", 4, 512))    # (label, TRAFFIC row, m_max)
+
+
+def _queued(dev, row: int, seed: int, sketch: str):
+    """A new service (default family ``sketch``) holding one full batch of
+    phase 4's traffic for one class."""
+    import torch
+
+    from repro_torch.serve.solver_service import SolverService
+
+    _, n_rng, d_rng = TRAFFIC[row]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    svc = SolverService(device=dev, sketch=sketch)
+    for _ in range(svc.batch_size):
+        svc.submit(*_request(g, dev, n_rng, d_rng))
+    return svc, g
+
+
+def _audit_batch(dev, row: int, seed: int):
+    """The service's packed batch of one class of phase 4's traffic: (the
+    class, q, seeds, row weights)."""
+    import torch
+
+    svc, g = _queued(dev, row, seed, "srht" if row == 4 else "gaussian")
+    cls = next(c for c, queue in svc._queues.items() if queue)
+    q, seeds = svc._pack(cls, svc._queues[cls])
+    w = torch.rand((q.batch, q.n), generator=g, device=dev) + 0.5
+    return cls, q, seeds, w
+
+
+def phase_audit(smi, dev="cuda"):
+    """Phase 9: the invariant audit on the card, peak device memory of every
+    one-touch pass and of whole flushes, the state audit and the rebuild
+    sentinel. Returns the kernel legs' launch counts over (b)."""
+    import torch
+
+    from repro_torch.analysis.audit.retrace import check_rebuild_sentinel, check_segment_state
+    from repro_torch.analysis.audit.runner import run_audit
+    from repro_torch.analysis.audit.rules import gaussian_budget
+    from repro_torch.analysis.memscan import peak_bytes_above_entry
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.level_grams import PADDED_SKETCHES, get_provider
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.precision import COMPUTE_DTYPES
+
+    dev = torch.device(dev)
+    # (a) the full registry and every negative control, on the card
+    t0 = time.perf_counter()
+    report = run_audit(device=dev)
+    for line in report.human_report().splitlines():
+        print(f"[audit] {line}")
+    print(f"[audit] {report.summary()} in {time.perf_counter() - t0:.1f} s; {smi}")
+    if not report.passed:
+        raise SystemExit("chip_smoke: the invariant audit failed on the card")
+
+    # (b) peak device memory of every one-touch pass at full width
+    ops.reset_launches()
+    for label, row, m_max in AUDIT_CLASSES:
+        cls, q, seeds, w = _audit_batch(dev, row, seed=100 + row)
+        B, n, d = q.batch, q.n, q.d
+        ladder = doubling_ladder(m_max)
+        budget = gaussian_budget(B, n, d, m_max)
+        dense = 4 * B * m_max * n
+        quant = 2 * 4 * B * n * d      # quantize_rows' two fp32 A-sized temporaries
+        print(f"[memory] {label} class {tuple(cls[:3])}, B = {B}: dense S {dense} B, "
+              f"Gaussian budget {budget} B (int8: + {quant} B of quantization "
+              f"temporaries), pinvs {len(ladder) * B * d * d * 4} B; {smi}")
+        for family in PADDED_SKETCHES:
+            prov = get_provider(family)
+            for cd in COMPUTE_DTYPES:
+                for weighted in (False, True):
+                    def one_pass(prov=prov, cd=cd, weighted=weighted):
+                        return prov.level_grams(prov.sample(seeds, m_max, n), q, ladder,
+                                                row_weights=w if weighted else None,
+                                                compute_dtype=cd)
+                    # a warm call first: a process's first cuBLAS call allocates
+                    # its 32 MiB workspace, which is no pass's
+                    one_pass()
+                    peak, _ = peak_bytes_above_entry(one_pass, dev)
+                    gate = budget + (quant if cd == "int8" else 0)
+                    gated = family == "gaussian"
+                    print(f"[memory] {label} {family}/{cd} "
+                          f"{'weighted' if weighted else 'unweighted'}: {peak} B above entry "
+                          f"({peak / 1e6:.2f} MB; {peak / dense:.3f} of dense S"
+                          + (f", {peak / gate:.3f} of its gate {gate} B" if gated else "")
+                          + ")")
+                    if gated and peak > gate:
+                        raise SystemExit(f"chip_smoke: the streamed Gaussian {cd} pass peaks "
+                                         f"at {peak} B, over its gate {gate} B")
+        del q, seeds, w
+        torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    print(f"[memory] launches per kernel leg over (b): {launches}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: phase 9 (b) never launched {missing}")
+
+    # (c) whole flushes, each on a new service with a full batch queued
+    for label, row, sketch in (("top", 3, "gaussian"), ("SRHT", 4, "srht")):
+        svc, _ = _queued(dev, row, 120 + row, sketch)
+        peak, sols = peak_bytes_above_entry(svc.flush, dev)
+        ok = sum(s.status == "OK" for s in sols.values())
+        print(f"[memory] one {label}-class flush in {sketch}/fp32 ({len(sols)} requests, "
+              f"{ok} OK): {peak} B above entry ({peak / 1e6:.2f} MB); {smi}")
+        del svc, sols
+        torch.cuda.empty_cache()
+
+    # (d) the state audit, and the rebuild sentinel over a second flush
+    vs, found = check_segment_state(dev)
+    print(f"[state] an {found['trips']}-trip segment at the top class: {found['peak_bytes']} "
+          f"B above entry ({found['peak_bytes'] / 1e6:.2f} MB) against pinvs' "
+          f"{found['pinvs_bytes']} B; {smi}")
+    if vs:
+        raise SystemExit(f"chip_smoke: {vs[0].message}")
+    for label, row, sketch in (("top", 3, "gaussian"), ("SRHT", 4, "srht")):
+        reserved = {}
+
+        def flush(device, seed, row=row, sketch=sketch, reserved=reserved):
+            svc, _ = _queued(device, row, 140 + seed, sketch)
+            torch.cuda.synchronize(device)
+            before = torch.cuda.memory_reserved(device)
+            svc.flush()
+            torch.cuda.synchronize(device)
+            reserved[seed] = torch.cuda.memory_reserved(device) - before
+
+        vs = check_rebuild_sentinel(dev, flush, name=f"flush:{label}")
+        print(f"[sentinel] a second {label}-class flush in {sketch}/fp32 compiled and opened "
+              f"no library: {not vs}; memory_reserved grew by {reserved[1]} B over it "
+              f"({reserved[0]} B over the first)")
+        if vs:
+            raise SystemExit(f"chip_smoke: {vs[0].message} ({vs[0].provenance})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1657,6 +1804,8 @@ def main() -> int:
     lap("phase 8 (b) (sharded pass and service, gloo ranks)")
     phase_nccl()
     lap("phase 8 (c) (one-rank NCCL group)")
+    phase_audit(smi)
+    lap("phase 9 (invariant audit, peak device memory)")
     rows += paper_rows
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

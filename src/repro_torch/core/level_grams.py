@@ -70,16 +70,19 @@ def prefix_level_grams(R: torch.Tensor, ladder: tuple[int, ...], *,
     sketch is the first m rows: prefix-summed per-segment row Grams, with
     the per-level 1/√m entry rescale folded in as 1/m when asked. A bf16
     row stream (the reduced modes) accumulates into fp32 Grams: its products
-    are exact in fp32 and its sums fp32."""
+    are exact in fp32 and its sums fp32. Each level is written into the
+    (L, B, d, d) result as it is made, so the stack exists once (a list
+    stacked at the end would hold it twice at the pass's peak)."""
     B, _, d = R.shape
-    grams, prev = [], 0
+    out = torch.empty((len(ladder), B, d, d), dtype=torch.float32, device=R.device)
+    prev = 0
     acc = torch.zeros((B, d, d), dtype=torch.float32, device=R.device)
-    for m in ladder:
+    for i, m in enumerate(ladder):
         seg = R[:, prev:m, :].to(torch.float32)
         acc = acc + torch.bmm(seg.transpose(1, 2), seg)
-        grams.append(acc / m if inv_m_scale else acc)
+        out[i] = acc / m if inv_m_scale else acc
         prev = m
-    return torch.stack(grams)
+    return out
 
 
 def _weights(q: Quadratic, row_weights):
@@ -163,8 +166,11 @@ class SJLTProvider:
             head, tail = top[:, :m_max, :], top[:, m_max:, :]
             by_m[m_max] = head + torch.nn.functional.pad(
                 tail, (0, 0, 0, 2 * m_max - M))
-        return torch.stack([torch.bmm(by_m[m].transpose(1, 2), by_m[m])
-                            for m in ladder])
+        B, d = SA.shape[0], SA.shape[2]
+        out = torch.empty((len(ladder), B, d, d), dtype=torch.float32, device=SA.device)
+        for i, m in enumerate(ladder):          # written in place: the stack exists once
+            out[i] = torch.bmm(by_m[m].transpose(1, 2), by_m[m])
+        return out
 
 
 class SRHTProvider:

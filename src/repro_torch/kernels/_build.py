@@ -37,6 +37,9 @@ SIGNATURES = {
 }
 
 _loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+# libraries compiled (one nvcc each) and opened in this process: a second
+# call of an entry point must add to neither (analysis.audit.retrace)
+COUNTS = {"builds": 0, "loads": 0}
 
 
 def a_kind(dtype, round_bf16: bool) -> int | None:
@@ -86,6 +89,7 @@ def build_all(names=tuple(SIGNATURES), defines: tuple[str, ...] = ()) -> dict[st
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+        COUNTS["builds"] += 1
     logs = {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -107,12 +111,18 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = _loaded.get(key)
     if lib is None:
         build_all((name,), defines)
-        lib = ctypes.CDLL(str(_target(name, defines)))
+        lib = open_library(_target(name, defines))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[key] = lib
     return lib
+
+
+def open_library(path) -> ctypes.CDLL:
+    """``ctypes.CDLL(path)``, counted in ``COUNTS["loads"]``."""
+    COUNTS["loads"] += 1
+    return ctypes.CDLL(str(path))
 
 
 def check_launch(code: int, what: str) -> None:

@@ -146,12 +146,15 @@ def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
     or (B, n, d) per problem (fp32, bf16 or, in int8 mode, int8 codes),
     seeds (B,) and an optional (B, n) column scale (``resolve_stream``).
 
-    Each step generates a chunk of S and reduces it in fixed _MICRO-column
-    micro-tiles, so the sequence of partial products, and so the result bit
-    for bit, does not depend on ``chunk_cols``: zero padding adds exact
-    zeros. In bf16 and int8 mode the scaled S micro-tile and the A slice are
+    Each step walks a chunk of n in fixed _MICRO-column micro-tiles and
+    generates S one (B, m, _MICRO) micro-tile at a time, as the reference
+    does, so the sequence of partial products, and so the result bit for
+    bit, does not depend on ``chunk_cols``: zero padding adds exact zeros.
+    In bf16 and int8 mode the scaled S micro-tile and the A slice are
     rounded to bf16 elementwise, which keeps that invariance per dtype. The
-    live sketch state is one (B, m, chunk) tile."""
+    live sketch state is one micro-tile: its int64 hash words, 8·B·m·_MICRO
+    bytes, are the pass's largest new tensor (the one-touch rule's budget,
+    ``analysis.audit.rules``)."""
     n, d = A.shape[-2], A.shape[-1]
     B = seeds.shape[0]
     check_caps(n, m)
@@ -168,14 +171,13 @@ def gaussian_sa_ref(A: torch.Tensor, seeds: torch.Tensor, m: int, *,
             scale = torch.nn.functional.pad(scale, (0, pad))
     acc = torch.zeros((B, m, d), dtype=torch.float32, device=A.device)
     for c0 in range(0, n + pad, chunk):
-        S = gaussian_tile(seeds, 0, c0, (m, chunk))
-        if scale is not None:
-            S = S * scale[:, None, c0:c0 + chunk]
-        S = round_to(S, ct)
         for i in range(k):
-            s_mu = S[:, :, i * _MICRO:(i + 1) * _MICRO]
-            a_mu = round_to(A[..., c0 + i * _MICRO:c0 + (i + 1) * _MICRO, :], ct)
-            acc = acc + torch.matmul(s_mu, a_mu)
+            c = c0 + i * _MICRO
+            s_mu = gaussian_tile(seeds, 0, c, (m, _MICRO))
+            if scale is not None:
+                s_mu = s_mu * scale[:, None, c:c + _MICRO]
+            a_mu = round_to(A[..., c:c + _MICRO, :], ct)
+            acc = acc + torch.matmul(round_to(s_mu, ct), a_mu)
     return acc
 
 

@@ -742,3 +742,44 @@ def test_sharded_pass_on_four_gloo_ranks_sharing_the_card(dev):
         assert float((got["grams"] - want).abs().max()) <= 1e-6 * float(want.abs().max())
         assert torch.equal(got["per_shard"], emu.shard_grams.cpu())
         assert torch.equal(got["cache_total"], emu.total().cpu())
+
+
+def test_gaussian_pass_peak_memory_at_top_class(dev):
+    """At the top class (B, n, d, m_max) = (16, 4096, 256, 512) the one-touch
+    Gaussian pass (sample, S·A in the kernel, the ladder Grams) allocates no
+    more above its entry than the one-touch rule's budget, and its sketch
+    (S·A with S generated on chip) less than a third of the dense S. The
+    pass is measured after a warm call of itself: the first cuBLAS call of
+    a process allocates a 32 MiB workspace that stays."""
+    from repro_torch.analysis.audit.entrypoints import problem
+    from repro_torch.analysis.audit.rules import gaussian_budget
+    from repro_torch.analysis.memscan import peak_bytes_above_entry
+    from repro_torch.core.adaptive_padded import doubling_ladder
+    from repro_torch.core.level_grams import get_provider
+
+    B, n, d, m = 16, 4096, 256, 512
+    q, seeds = problem(dev, b=B, n=n, d=d)
+    prov = get_provider("gaussian")
+
+    def one_pass():
+        return prov.level_grams(prov.sample(seeds, m, n), q, doubling_ladder(m))
+
+    one_pass()          # the process's first cuBLAS call allocates its workspace
+    peak, grams = peak_bytes_above_entry(one_pass, dev)
+    assert bool(torch.isfinite(grams).all())
+    assert peak <= gaussian_budget(B, n, d, m), peak
+    sketch_peak, _ = peak_bytes_above_entry(lambda: ops.gaussian_sa(q.A, seeds, m), dev)
+    assert sketch_peak < 4 * B * m * n / 3, sketch_peak
+
+
+def test_quick_audit_passes_on_the_card(dev):
+    """The quick registry on the card (the sharded entry points in a
+    one-rank NCCL group): every rule passes, every negative control fails
+    under its own rule, the state audit included."""
+    from repro_torch.analysis.audit.runner import run_audit
+
+    report = run_audit(quick=True, device=dev)
+    assert report.passed, report.human_report()
+    assert any(f.name == "fixture:cloned_pinvs" and f.fired for f in report.fixtures)
+    assert report.launches and report.state_audit["peak_bytes"] < report.state_audit[
+        "pinvs_bytes"]
