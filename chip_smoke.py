@@ -1648,7 +1648,7 @@ def _audit_batch(dev, row: int, seed: int):
 def phase_audit(smi, dev="cuda"):
     """Phase 9: the invariant audit on the card, peak device memory of every
     one-touch pass and of whole flushes, the state audit and the rebuild
-    sentinel. Returns the kernel legs' launch counts over (b)."""
+    sentinel."""
     import torch
 
     from repro_torch.analysis.audit.retrace import check_rebuild_sentinel, check_segment_state
@@ -1678,10 +1678,10 @@ def phase_audit(smi, dev="cuda"):
         ladder = doubling_ladder(m_max)
         budget = gaussian_budget(B, n, d, m_max)
         dense = 4 * B * m_max * n
-        quant = 2 * 4 * B * n * d      # quantize_rows' two fp32 A-sized temporaries
+        quant = 4 * B * n * d          # int8's fp32 A-sized pass, the reference's allowance
         print(f"[memory] {label} class {tuple(cls[:3])}, B = {B}: dense S {dense} B, "
-              f"Gaussian budget {budget} B (int8: + {quant} B of quantization "
-              f"temporaries), pinvs {len(ladder) * B * d * d * 4} B; {smi}")
+              f"Gaussian budget {budget} B (int8: + {quant} B for one fp32 A-sized "
+              f"quantization pass), pinvs {len(ladder) * B * d * d * 4} B; {smi}")
         for family in PADDED_SKETCHES:
             prov = get_provider(family)
             for cd in COMPUTE_DTYPES:
@@ -1747,7 +1747,6 @@ def phase_audit(smi, dev="cuda"):
         if vs:
             raise SystemExit(f"chip_smoke: {vs[0].message} ({vs[0].provenance})")
     torch.cuda.empty_cache()
-    return launches
 
 
 def main() -> int:

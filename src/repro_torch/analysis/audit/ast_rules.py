@@ -27,10 +27,10 @@ from __future__ import annotations
 import ast
 from pathlib import Path
 
+from .op_trace import PORT_DIR, repo_relative
 from .rules import Violation
 
 _LATTICE_NAMES = ("SolveStatus", "ENGINE_FAILURES", "status_name", "CONVERGED_STATUSES")
-PORT_DIR = Path(__file__).resolve().parents[2]         # src/repro_torch
 
 
 def _is_call_named(node: ast.Call, name: str) -> bool:
@@ -121,6 +121,6 @@ def lint_tree(root: str | Path = PORT_DIR) -> list[Violation]:
         if f.name == "fixtures.py" and "audit" in f.parts:
             continue
         module = f.relative_to(root.parent).with_suffix("")
-        path = f.relative_to(PORT_DIR.parents[1]) if f.is_relative_to(PORT_DIR.parents[1]) else f
-        out.extend(lint_module_source(f.read_text(), ".".join(module.parts), str(path)))
+        out.extend(lint_module_source(f.read_text(), ".".join(module.parts),
+                                      str(repo_relative(f))))
     return out

@@ -124,7 +124,8 @@ def loop_allreduce_ep() -> EntryPoint:
         return ot.record(fn, watch=[q.A], device=dev)
 
     return EntryPoint("fixture:loop_allreduce", "sharded", None,
-                      _meta("collective_inventory", psum_budget=0, psum_shapes=[]),
+                      _meta("collective_inventory", psum_budget=3,
+                            psum_shapes=[(_B, _D)] * 3),
                       rank_build=rank_build)
 
 
@@ -240,8 +241,7 @@ def lint_fixture(const: str, module_name: str = "fixture"):
     line = next(node.value.lineno for node in tree.body
                 if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
                 and node.targets[0].id == const)
-    root = Path(_build.__file__).resolve().parents[3]
-    return lint_module_source(globals()[const], module_name, str(path.relative_to(root)),
+    return lint_module_source(globals()[const], module_name, str(ot.repo_relative(path)),
                               first_line=line)
 
 

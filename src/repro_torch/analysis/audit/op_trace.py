@@ -50,9 +50,9 @@ CONTRACTION_OPS = frozenset({
 })
 COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 
-_PORT_DIR = str(Path(__file__).resolve().parents[2])       # src/repro_torch
-_ROOT_DIR = str(Path(_PORT_DIR).parents[1])                 # provenance is relative to it
-_THIS = str(Path(__file__).resolve())
+PORT_DIR = Path(__file__).resolve().parents[2]             # src/repro_torch
+ROOT_DIR = PORT_DIR.parents[1]                              # reports name paths from it
+_PORT, _ROOT, _THIS = str(PORT_DIR), str(ROOT_DIR), str(Path(__file__).resolve())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +117,12 @@ def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
 
+def repo_relative(path: str | Path) -> Path:
+    """``path`` from the repository's root where it lies inside it."""
+    path = Path(path).resolve()
+    return path.relative_to(ROOT_DIR) if path.is_relative_to(ROOT_DIR) else path
+
+
 def provenance(label: str = "", depth: int = 1) -> str:
     """``src/repro_torch/<module>.py:<line>`` of the innermost frame of the
     port outside this module, from ``depth`` frames above this call, with
@@ -124,8 +130,8 @@ def provenance(label: str = "", depth: int = 1) -> str:
     f = sys._getframe(depth)
     while f is not None:
         fn = f.f_code.co_filename
-        if fn.startswith(_PORT_DIR) and fn != _THIS:
-            where = f"{fn[len(_ROOT_DIR) + 1:]}:{f.f_lineno}"
+        if fn.startswith(_PORT) and fn != _THIS:
+            where = f"{fn[len(_ROOT) + 1:]}:{f.f_lineno}"
             return f"{where} ({label})" if label else where
         f = f.f_back
     return f"<outside src/repro_torch> ({label})" if label else "<outside src/repro_torch>"

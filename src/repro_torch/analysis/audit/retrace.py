@@ -16,7 +16,6 @@ and no buffer donation, so the two checks translate:
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import Callable
 
 import torch
@@ -32,7 +31,7 @@ from repro_torch.core.adaptive_padded import (
 from repro_torch.kernels import _build
 
 from .entrypoints import problem
-from .op_trace import provenance
+from .op_trace import provenance, repo_relative
 from .rules import Violation
 
 # the reference's tiny but faithful lifecycle: batched, n not a power of two
@@ -89,10 +88,7 @@ def _code_location(fn) -> str:
     code = getattr(fn, "__code__", None)
     if code is None:
         return ""
-    path = Path(code.co_filename).resolve()
-    root = Path(_build.__file__).resolve().parents[3]
-    rel = path.relative_to(root) if path.is_relative_to(root) else path
-    return f"{rel}:{code.co_firstlineno}"
+    return f"{repo_relative(code.co_filename)}:{code.co_firstlineno}"
 
 
 def check_segment_state(device, segment: Callable = padded_solve_segment,

@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import math
 
-from repro_torch.kernels.precision import canonical_compute_dtype
-
 # H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, bf16 on the
 # tensor cores (the reduced legs multiply bf16 values into fp32 sums), HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -30,13 +28,6 @@ PEAK_INSTR = 132 * 4 * 32 * 1.98e9
 # NVLink 4 (data sheet): 900 GB/s a card in both directions, 450 GB/s each
 # way; the rate a ring all-reduce's per-rank traffic crosses at best
 NVLINK_BYTES = 450e9
-
-
-def peak_flops(compute_dtype: str | None) -> float:
-    """The peak a sketch-pass leg's operations run at: fp32 outside the
-    tensor cores, or bf16 on them (the bf16 and int8 legs)."""
-    return (PEAK_FP32_FLOPS if canonical_compute_dtype(compute_dtype) == "fp32"
-            else PEAK_BF16_FLOPS)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -86,10 +77,10 @@ def allreduce_bytes(payload_bytes: int, world: int) -> float:
     return 2.0 * (world - 1) / world * payload_bytes
 
 
-def collective_ms(payload_bytes: int, world: int, link: float = NVLINK_BYTES) -> float:
+def collective_ms(payload_bytes: int, world: int) -> float:
     """The least time of a ring all-reduce over NVLink (the collective term
     of a sharded pass: ``analysis.collectives`` gives its payloads)."""
-    return allreduce_bytes(payload_bytes, world) / link * 1e3
+    return allreduce_bytes(payload_bytes, world) / NVLINK_BYTES * 1e3
 
 
 # the ridge-probe dims every solver dry-run cell uses (the reference's

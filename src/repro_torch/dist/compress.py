@@ -22,7 +22,8 @@ def quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # by its reciprocal, which rounds some scales one ulp off max|row|/127
     scale = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    codes = torch.clamp(torch.round(v / safe[..., None]), -127, 127).to(torch.int8)
+    # one A-sized fp32 temporary: rounded and clamped in place
+    codes = v.div(safe[..., None]).round_().clamp_(-127, 127).to(torch.int8)
     return codes, scale
 
 

@@ -61,6 +61,15 @@ def test_every_fixture_fails_under_its_rule(quick, name):
     assert any(v["provenance"].startswith("src/repro_torch/") for v in got["violations"])
 
 
+def test_loop_allreduce_fires_only_inside_the_trip(quick):
+    """The loop control's budget equals its count and its payloads are the
+    documented ones, so only the in-trip clause can fire."""
+    _, report = quick
+    (got,) = [f for f in report["fixtures"] if f["fixture"] == "fixture:loop_allreduce"]
+    assert got["violations"] and all("inside a loop trip" in v["message"]
+                                     for v in got["violations"]), got
+
+
 @pytest.mark.parametrize("quick_", [False, True], ids=["full", "quick"])
 def test_registry_names_equal_the_reference(quick_):
     from repro.analysis.audit.entrypoints import build_targets as ref_targets

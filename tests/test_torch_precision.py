@@ -63,6 +63,25 @@ def test_quantize_rows_bitwise(shape):
                  .sub(st / 2).max()) <= 0.0
 
 
+def test_quantize_rows_in_place_same_bits():
+    """The codes are rounded and clamped in place: the same bits as the
+    out-of-place round-then-clamp, the input left as it was, and no more
+    than two new A-sized fp32 tensors (|A| and one code temporary)."""
+    from repro_torch.analysis.audit import op_trace as ot
+
+    rng = np.random.default_rng(5)
+    v = _t((rng.standard_normal((3, 40, 16)) * 300.0).astype(np.float32))
+    v0 = v.clone()
+    trace = ot.record(lambda: tc.quantize_rows(v))
+    codes, scales = trace.result
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    want = torch.clamp(torch.round(v0 / safe[..., None]), -127, 127).to(torch.int8)
+    assert torch.equal(codes, want) and torch.equal(v, v0)
+    a_sized = ot.find_new_tensors(
+        trace, lambda shp, dt: shp == tuple(v.shape) and dt == torch.float32)
+    assert len(a_sized) == 2, [s.op for s in a_sized]
+
+
 def test_precision_names():
     assert tp.COMPUTE_DTYPES == ("fp32", "bf16", "int8")
     assert [tp.stream_itemsize(c) for c in tp.COMPUTE_DTYPES] == [4, 2, 1]
