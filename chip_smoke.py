@@ -104,8 +104,27 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    ``ShardLadderCache.from_mesh`` bitwise ``from_emulation``, the
    all-reduce's bytes and ms, and 16 requests of the pod-scale class
    (65536, 256, 512, srht) through the sharded service under the ridge
-   gate; (c) a one-rank NCCL group, its pass bitwise the one-device
-   provider's;
+   gate; in the same ranks, deadlines, checkpoints and preemption under
+   the mesh at the top class (gaussian/fp32, 8-trip segments of the
+   segmented driver): a generous deadline bitwise the no-deadline answer,
+   a zero deadline that binds after the first segment, with the
+   same statuses, DEADLINE_EXCEEDED slots and segments on every rank and
+   each OK slot within the ridge gate, a zero deadline on every rank but
+   the lead (never binds: bitwise the no-deadline answer, each slot within
+   the ridge gate) and on the lead alone (binds every rank after the first
+   segment, bitwise the all-ranks zero deadline), a preemption flag on rank 3 only
+   that stops every rank at segment 2 with rank 0 alone writing the
+   checkpoint and a resume bitwise the uninterrupted answer, the host
+   verdict's ms a segment boundary per rank, and the pod-scale class again
+   under per-request deadlines with a checkpoint directory (every answer
+   OK under the ridge gate, the same EDF order and answers on every rank);
+   each rank counts its kernel launches per task from 0, and the Gaussian,
+   scaled FWHT and batched SJLT must have launched on the sharded tasks;
+   (c) a one-rank NCCL group, its pass bitwise the one-device provider's;
+   (d) the solver's pod-scale dry-run (``launch.dryrun_solver``): all six
+   variants on the 16×16 and 2×16×16 fake meshes with status ok, their
+   per-rank dot FLOPs, collective bytes and H100 data-sheet roofline
+   terms;
 9. the port's invariant audit on the card (``analysis.audit``): (a) the full
    registry (the reference's 55 entry points, the sharded ones in a
    one-rank NCCL group) passes every rule, every negative control fails
@@ -118,7 +137,10 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    S's bytes and the Gaussian budget of the one-touch rule, the Gaussian's
    fp32 and bf16 passes gated under that budget (int8's quantization
    temporaries are the rule's documented allowance: printed, gated under
-   the budget plus them); the launch counts set to 0 before (b) and read
+   the budget plus them), and the ``gaussian_dense`` passes under
+   1.25 × (dense S + SA), its bf16 and int8 legs plus one A-sized fp32
+   copy (4·B·n·d); the launch counts set
+   to 0 before (b) and read
    after it, every leg launched; (c) the peak of one whole top-class flush
    in gaussian/fp32 and one SRHT-class flush in srht/fp32; (d) the segment
    state audit (an 8-trip segment at the top class allocates less than
@@ -133,8 +155,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -670,14 +694,15 @@ def phase_main_path(dev="cuda", sketch="gaussian", compute_dtype="fp32",
     return launches
 
 
-def _ridge_gate(x, A, y, nu, iters):
+def _ridge_gate(x, A, y, nu, iters, rhs=None):
     """(H-norm rel error vs the fp64 direct solve, its tolerance) of one
-    answer: phase 4's gate, for a λ-path point or a phase 7 answer."""
+    answer: phase 4's gate, for a λ-path point or a phase 7 answer; ``rhs``
+    replaces Aᵀy for a problem given as (A, b, ν)."""
     import torch
 
     A64 = A.double()
     H = A64.T @ A64 + nu ** 2 * torch.eye(A.shape[1], dtype=torch.float64, device=A.device)
-    x64 = torch.linalg.solve(H, A64.T @ y.double())
+    x64 = torch.linalg.solve(H, A64.T @ y.double() if rhs is None else rhs.double())
     e = x.double() - x64
     err = float(torch.sqrt((e @ H @ e) / (x64 @ H @ x64)))
     ev = torch.linalg.eigvalsh(H)
@@ -1346,6 +1371,15 @@ SHARD_PASSES = (("gaussian", "fp32"), ("sjlt", "int8"), ("srht", "bf16"))
 # order: fp32 sums of K terms reordered, a few ulp of the Grams' scale
 SHARD_REL_TOL = 1e-6
 POD_TRAFFIC = dict(seed=80, count=16, n_range=(40000, 65536), d_range=(128, 256))
+# the sharded segmented solves: 8-trip segments; a zero deadline binds after
+# the first segment (which always runs), on the lead rank's clock, as phase
+# 5 (b)'s does on one device (a deadline measured from an earlier solve's
+# wall did not always bind: ranks sharing the card run at varying speed);
+# rank 3's preemption flag turns on at its third poll (before segment 3), so
+# every rank raises at segment 2; the pod-scale requests' deadlines are
+# generous and all different (EDF)
+SEG_TRIPS, SEG_PREEMPT = 8, (3, 3)
+POD_DEADLINES = tuple(3600.0 - 60.0 * i for i in range(16))
 
 
 def _paper_problem(dev, nu, seed=0):
@@ -1529,9 +1563,33 @@ def phase_sharded(smi):
                                        compute_dtype=c, time_reps=5 if f == "gaussian" else 0))
              for f, c in SHARD_PASSES]
     tasks.append(("pod", "service", dict(requests=POD_TRAFFIC, service=dict(batch_size=16))))
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    seg = dict(q=q_cpu, seeds=seeds.cpu())
+    kw = dict(m_max=m_max, sketch="gaussian", segment_trips=SEG_TRIPS)
+    tasks += [
+        ("seg", "segmented", dict(seg, kw=kw)),
+        ("seg-generous", "segmented", dict(seg, kw=dict(kw, deadline_s=3600.0))),
+        ("seg-bind", "segmented", dict(seg, kw=dict(kw, deadline_s=0.0))),
+        # only the lead rank's clock counts: spent on the others never binds,
+        # spent on the lead alone binds every rank
+        ("seg-others-late", "segmented",
+         dict(seg, kw=kw, deadlines=[3600.0] + [0.0] * (SHARD_K - 1))),
+        ("seg-lead-late", "segmented",
+         dict(seg, kw=kw, deadlines=[0.0] + [3600.0] * (SHARD_K - 1))),
+        ("seg-preempt", "segmented", dict(seg, kw=kw, checkpoint=f"{ck}/seg",
+                                          preempt=SEG_PREEMPT)),
+        ("seg-resume", "segmented", dict(seg, kw=kw, checkpoint=f"{ck}/seg")),
+        ("pod-ft", "service", dict(requests=POD_TRAFFIC, deadlines=POD_DEADLINES,
+                                   service=dict(batch_size=16, checkpoint_dir=f"{ck}/pod"))),
+    ]
     t0 = time.perf_counter()
-    res = run_ranks("repro_torch.launch.sharded:run_tasks", SHARD_K, {"tasks": tasks},
-                    backend="gloo", device="cuda", timeout=600)
+    try:
+        res = run_ranks("repro_torch.launch.sharded:run_tasks", SHARD_K,
+                        {"tasks": tasks}, backend="gloo", device="cuda",
+                        timeout=900)
+        writers = sorted({c.relative_to(ck).parts[0] for c in Path(ck).glob("**/COMMITTED")})
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
     print(f"[sharded] {SHARD_K} gloo ranks on one card ran their tasks in "
           f"{time.perf_counter() - t0:.1f} s (each process's start included)")
     for f, c in SHARD_PASSES:
@@ -1579,8 +1637,129 @@ def phase_sharded(smi):
     if kept > 65536 // SHARD_K:
         raise SystemExit(f"chip_smoke: a rank of the sharded service queued {kept} rows of "
                          f"a request, more than its {65536 // SHARD_K}")
+    _sharded_ft(smi, res, q, writers)
+    launches = {}
+    for r in res:
+        for counts in r["launches"].values():
+            for body, v in counts.items():
+                launches[body] = launches.get(body, 0) + v
+    print(f"[sharded] launches per Pallas body over the {SHARD_K} ranks' tasks (counted in "
+          f"each rank from 0, read after each task): {launches}")
+    for body, task in (("_gauss_sa_kernel", "seg"), ("_fwht_kernel_scaled", "pod-ft"),
+                       ("_sjlt_kernel_batched", "sjlt/int8")):
+        if not all(r["launches"][task][body] > 0 for r in res):
+            raise SystemExit(f"chip_smoke: the sharded task {task} never launched {body}")
     del q, A, reqs
     torch.cuda.empty_cache()
+
+
+def _sharded_ft(smi, res, q, writers):
+    """Phase 8 (b)'s deadline, checkpoint and preemption tasks: one verdict
+    for every rank."""
+    import torch
+
+    from repro_torch.core.status import SolveStatus
+    from repro_torch.launch.sharded import ridge_requests
+
+    def same(name, key):
+        return all(torch.equal(r[name][key], res[0][name][key]) for r in res)
+
+    def gate(name):
+        st, worst = res[0][name]["stats"], 0.0
+        for b in range(q.batch):
+            if st["status"][b] != int(SolveStatus.OK):
+                continue
+            err, tol = _ridge_gate(res[0][name]["x"][b].to(q.A.device), q.A[b], None,
+                                   float(q.nu[b]), int(st["iters"][b]), rhs=q.b[b])
+            if not err <= tol:
+                raise SystemExit(f"chip_smoke: sharded {name} slot {b} error {err:.3e} over "
+                                 f"its gate {tol:.3e}")
+            worst = max(worst, err / tol)
+        return worst
+
+    base = res[0]["seg"]
+    stats = [r["seg"]["stats"] for r in res]
+    if not (same("seg", "x") and all(s["segments"] == stats[0]["segments"] for s in stats)):
+        raise SystemExit("chip_smoke: the sharded segmented solve differs between ranks")
+    print(f"[mesh-ft] no deadline: {stats[0]['segments']} segments of {SEG_TRIPS} trips, "
+          f"{base['wall_s'] * 1e3:.1f} ms on rank 0; worst OK slot {gate('seg'):.3f} of its "
+          f"ridge gate")
+    gen = [r["seg-generous"] for r in res]
+    bitwise = all(torch.equal(g["x"], r["seg"]["x"])
+                  and torch.equal(g["stats"]["status"], r["seg"]["stats"]["status"])
+                  for g, r in zip(gen, res))
+    print(f"[mesh-ft] generous deadline (3600 s): bitwise the no-deadline answer on every "
+          f"rank {bitwise}; {gen[0]['stats']['verdicts']} verdicts")
+    if not bitwise or any(g["stats"]["deadline_hit"] for g in gen):
+        raise SystemExit("chip_smoke: a generous deadline changed the sharded answer")
+    bind = [r["seg-bind"] for r in res]
+    st0 = bind[0]["stats"]
+    agree = (same("seg-bind", "x")
+             and all(torch.equal(b["stats"]["status"], st0["status"])
+                     and b["stats"]["segments"] == st0["segments"]
+                     and b["stats"]["deadline_hit"] == st0["deadline_hit"] for b in bind))
+    late = int((st0["status"] == int(SolveStatus.DEADLINE_EXCEEDED)).sum())
+    print(f"[mesh-ft] deadline 0 s (binds after the first segment): hit "
+          f"{st0['deadline_hit']} after {st0['segments']} of {stats[0]['segments']} "
+          f"segments; {late} slots "
+          f"DEADLINE_EXCEEDED, the same slots, statuses and segments on every rank {agree}; "
+          f"worst OK slot {gate('seg-bind'):.3f} of its ridge gate; every x finite "
+          f"{bool(torch.isfinite(bind[0]['x']).all())}")
+    if not (agree and st0["deadline_hit"] and st0["segments"] == 1
+            and st0["segments"] < stats[0]["segments"] and late > 0
+            and bool(torch.isfinite(bind[0]["x"]).all())):
+        raise SystemExit("chip_smoke: the sharded deadline did not bind mid-solve on one "
+                         "verdict for every rank")
+    others = [r["seg-others-late"] for r in res]
+    lead = [r["seg-lead-late"] for r in res]
+    never = all(not o["stats"]["deadline_hit"] and torch.equal(o["x"], r["seg"]["x"])
+                and torch.equal(o["stats"]["status"], r["seg"]["stats"]["status"])
+                for o, r in zip(others, res))
+    binds = all(lo["stats"]["deadline_hit"] and lo["stats"]["segments"] == 1
+                and torch.equal(lo["x"], r["seg-bind"]["x"])
+                and torch.equal(lo["stats"]["status"], r["seg-bind"]["stats"]["status"])
+                for lo, r in zip(lead, res))
+    print(f"[mesh-ft] deadline 0 s on ranks 1-{SHARD_K - 1} only (3600 s on the lead): never "
+          f"bound, bitwise the no-deadline answer on every rank {never}; worst OK slot "
+          f"{gate('seg-others-late'):.3f} of its ridge gate. Deadline 0 s on the lead only: "
+          f"bound after segment 1 on every rank, bitwise the all-ranks zero deadline {binds}")
+    if not (never and binds):
+        raise SystemExit("chip_smoke: a sharded deadline followed a clock other than the "
+                         "lead rank's")
+    pre = [r["seg-preempt"] for r in res]
+    saves = [p["saves"] for p in pre]
+    resumed = [r["seg-resume"] for r in res]
+    ok = (all(p["preempted"] == 2 for p in pre) and saves[0] > 0 and not any(saves[1:])
+          and all(r["stats"]["resumed"] for r in resumed)
+          and all(torch.equal(r2["x"], r["seg"]["x"]) for r2, r in zip(resumed, res)))
+    print(f"[mesh-ft] preemption flag on rank {SEG_PREEMPT[0]} only: raised at segments "
+          f"{[p['preempted'] for p in pre]}, checkpoints written per rank {saves}; resumed "
+          f"answer bitwise the uninterrupted one on every rank {ok}")
+    if not ok:
+        raise SystemExit("chip_smoke: the sharded preemption did not stop every rank at one "
+                         "segment, or the resume is not bitwise")
+    ms = [r["seg-generous"]["stats"]["verdict_s"] * 1e3 / r["seg-generous"]["stats"]["verdicts"]
+          for r in res]
+    print(f"[mesh-ft] host verdict (one (2,) int32 MAX all-reduce, gloo, {SHARD_K} ranks "
+          f"sharing the card): {', '.join(f'{v:.3f}' for v in ms)} ms a segment boundary "
+          f"per rank; {smi}")
+    pod = [r["pod-ft"] for r in res]
+    for (A_r, y_r, nu), a in zip(ridge_requests(device=q.A.device, **POD_TRAFFIC),
+                                 pod[0]["answers"]):
+        err, tol = _ridge_gate(a["x"].to(q.A.device), A_r, y_r, nu, a["iters"])
+        if a["status"] != "OK" or not err <= tol:
+            raise SystemExit(f"chip_smoke: pod-scale answer under deadlines {a['status']}, "
+                             f"error {err:.3e} (gate {tol:.3e})")
+    same_pod = all(p["order"] == pod[0]["order"]
+                   and all(torch.equal(a["x"], b["x"])
+                           for a, b in zip(p["answers"], pod[0]["answers"])) for p in pod)
+    print(f"[mesh-ft] pod-scale class under per-request deadlines with a checkpoint "
+          f"directory: {len(pod[0]['answers'])} answers OK under the ridge gate, "
+          f"{pod[0]['stats']['segments']} segments; the same EDF order and answers on every "
+          f"rank {same_pod}; checkpoints in {writers}")
+    if not same_pod or "pod" not in writers:
+        raise SystemExit("chip_smoke: the pod-scale service under deadlines differs between "
+                         "ranks or wrote no checkpoint")
 
 
 def phase_nccl():
@@ -1616,6 +1795,11 @@ def phase_nccl():
 
 
 AUDIT_CLASSES = (("top", 3, 512), ("SRHT", 4, 512))    # (label, TRAFFIC row, m_max)
+# the gaussian_dense pass, weighted or not, above entry: at most this many
+# times (dense S + SA), plus in bf16 and int8 one A-sized fp32 copy
+# (4·B·n·d); the dense S is built in column blocks, so the plain hash's
+# temporaries are a fraction of S (it held 16.1× S unblocked)
+DENSE_GATE = 1.25
 
 
 def _queued(dev, row: int, seed: int, sketch: str):
@@ -1696,14 +1880,20 @@ def phase_audit(smi, dev="cuda"):
                     peak, _ = peak_bytes_above_entry(one_pass, dev)
                     gate = budget + (quant if cd == "int8" else 0)
                     gated = family == "gaussian"
+                    if family == "gaussian_dense":
+                        # the materialized baseline holds one S and SA; its
+                        # reduced legs add one fp32 copy of A, rounded
+                        gate = (DENSE_GATE * (dense + 4 * B * m_max * d)
+                                + (quant if cd != "fp32" else 0))
+                        gated = True
                     print(f"[memory] {label} {family}/{cd} "
                           f"{'weighted' if weighted else 'unweighted'}: {peak} B above entry "
                           f"({peak / 1e6:.2f} MB; {peak / dense:.3f} of dense S"
-                          + (f", {peak / gate:.3f} of its gate {gate} B" if gated else "")
+                          + (f", {peak / gate:.3f} of its gate {gate:.0f} B" if gated else "")
                           + ")")
                     if gated and peak > gate:
-                        raise SystemExit(f"chip_smoke: the streamed Gaussian {cd} pass peaks "
-                                         f"at {peak} B, over its gate {gate} B")
+                        raise SystemExit(f"chip_smoke: the {family} {cd} pass peaks "
+                                         f"at {peak} B, over its gate {gate:.0f} B")
         del q, seeds, w
         torch.cuda.empty_cache()
     launches = dict(ops.LAUNCHES)
@@ -1747,6 +1937,29 @@ def phase_audit(smi, dev="cuda"):
         if vs:
             raise SystemExit(f"chip_smoke: {vs[0].message} ({vs[0].provenance})")
     torch.cuda.empty_cache()
+
+
+def phase_dryrun(smi):
+    """Phase 8 (d): the solver's pod-scale dry-run, all six variants on the
+    16×16 and 2×16×16 fake meshes, traced per rank with nothing allocated;
+    the roofline terms are H100 data-sheet arithmetic, not a measurement."""
+    from repro_torch.analysis.roofline import analyze_record
+    from repro_torch.launch import dryrun_solver
+
+    for mesh_name in ("single", "multi"):
+        for variant in dryrun_solver.VARIANTS:
+            rec = dryrun_solver.run(variant, mesh_name, None)
+            if rec["status"] != "ok":
+                raise SystemExit(f"chip_smoke: dry-run {mesh_name}/{variant}: {rec['error']}")
+            r = analyze_record(rec)
+            print(f"[dryrun] {mesh_name} ({rec['n_devices']} ranks) solver-{variant}: per rank "
+                  f"{rec['hlo_dot_flops']:.4e} dot FLOPs ({rec['flops']:.4e} with the analytic "
+                  f"factorization, solves and sketch), {rec['collectives']['total_bytes']} B "
+                  f"of collectives, {rec['bytes_accessed']:.4e} B accessed; data-sheet terms "
+                  f"compute {r.compute_s:.4e} s, memory {r.memory_s:.4e} s, collective "
+                  f"{r.collective_s:.4e} s → {r.bottleneck}; useful {r.useful_ratio:.3f}")
+    print(f"[dryrun] 12 records ok (traced on the host under FakeTensorMode; the terms are "
+          f"data-sheet arithmetic, beside {smi})")
 
 
 def main() -> int:
@@ -1803,6 +2016,8 @@ def main() -> int:
     lap("phase 8 (b) (sharded pass and service, gloo ranks)")
     phase_nccl()
     lap("phase 8 (c) (one-rank NCCL group)")
+    phase_dryrun(smi)
+    lap("phase 8 (d) (pod-scale dry-run)")
     phase_audit(smi)
     lap("phase 9 (invariant audit, peak device memory)")
     rows += paper_rows

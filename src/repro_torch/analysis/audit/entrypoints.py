@@ -7,6 +7,9 @@ all, 22 in ``quick``) and shapes. The registry is built from the port's own
 ``DEFAULT_SHAPE_CLASSES``, so a new family, method, dtype or service class
 is audited the moment it exists.
 
+``port_targets()`` adds the entry points the reference has no counterpart
+of (the sharded drivers' host verdicts); the runner audits both lists.
+
 Each ``EntryPoint.build(device)`` runs its entry point under
 ``op_trace.record`` on ``device`` with inputs from a seeded
 ``torch.Generator`` there, and returns the trace. The sharded entry points
@@ -215,6 +218,75 @@ def _sharded_weighted_gram_ep() -> EntryPoint:
                                  psum_shapes=[(B, D, D)]))
 
 
+VERDICT_SHAPE = (2,)    # core.distributed.host_verdict's int32 (stop, expired)
+RESUME_SHAPE = (1,)     # the lead rank's latest checkpoint step (lead_values)
+
+
+def _segmented_mesh_trace(mesh, dev, *, preempt=None, **kw) -> ot.OpTrace:
+    """A sharded segmented solve at the audit shapes that stops at its
+    second segment boundary: two host verdicts, one a boundary. With
+    ``preempt`` it checkpoints into a temporary directory."""
+    import tempfile
+
+    from repro_torch.core.robust import PreemptedError, segmented_padded_solve_batched
+
+    q, seeds = _rank_problem(mesh, dev)
+    with tempfile.TemporaryDirectory(prefix="audit_ckpt_") as ck:
+        def fn():
+            try:
+                return segmented_padded_solve_batched(
+                    q, seeds, m_max=M_MAX, segment_trips=SEGMENT_TRIPS, preempt=preempt,
+                    checkpoint=None if preempt is None else ck, mesh=mesh, device=dev, **kw)
+            except PreemptedError as e:
+                return e
+
+        return ot.record(fn, watch=[q.A], device=dev)
+
+
+class _StopAtSecondPoll:
+    """A preemption flag that turns on at its second read."""
+
+    def __init__(self):
+        self.reads = 0
+
+    @property
+    def should_stop(self):
+        self.reads += 1
+        return self.reads >= 2
+
+
+def _mesh_ft_ep(what: str) -> EntryPoint:
+    """The sharded segmented driver under a deadline that binds after the
+    first segment, or with a checkpoint and a preemption flag that stops it
+    at the second boundary: its precompute's all-reduces (the ladder's and
+    the true Gram's, as ``path:sharded``), with a checkpoint the lead rank's
+    latest step (one (1,) fp64 ``lead_values``: every rank resumes the same
+    step, here none), and one (2,) int32 verdict a segment boundary, never
+    one inside a trip."""
+
+    def rank_build(mesh, dev):
+        if what == "deadline":
+            return _segmented_mesh_trace(mesh, dev, deadline_s=0.0)
+        return _segmented_mesh_trace(mesh, dev, preempt=_StopAtSecondPoll())
+
+    L = len(doubling_ladder(M_MAX))
+    resume = [] if what == "deadline" else [RESUME_SHAPE]
+    return EntryPoint(name=f"sharded:segmented:{what}:gaussian:fp32", kind="sharded",
+                      build=None, rank_build=rank_build,
+                      meta=_meta(family="gaussian", method="pcg", compute_dtype="fp32",
+                                 psum_budget=4 + len(resume),
+                                 psum_shapes=[(L, B, D, D), (B, D, D), *resume,
+                                              VERDICT_SHAPE, VERDICT_SHAPE]))
+
+
+def port_targets() -> list[EntryPoint]:
+    """Entry points of the port beyond the reference's registry: the sharded
+    drivers' host decisions (deadline, checkpoint and preemption under a
+    mesh), which the reference's single controller makes without a
+    collective."""
+    return [_mesh_ft_ep("deadline"), _mesh_ft_ep("preempt")]
+
+
 def _newton_inner_ep() -> EntryPoint:
     """The Newton driver's inner solve: the weighted engine with a warm
     ``init_level``, as ``core.newton`` runs it each step."""
@@ -356,6 +428,6 @@ def rank_traces(mesh, payload: dict) -> dict[str, ot.OpTrace]:
     if dev.type == "cuda":
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
-    eps = {ep.name: ep for ep in [*build_targets(), *fixture_targets()]}
+    eps = {ep.name: ep for ep in [*build_targets(), *port_targets(), *fixture_targets()]}
     return {name: eps[name].rank_build(mesh, dev).without_result()
             for name in payload["names"]}

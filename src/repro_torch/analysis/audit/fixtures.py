@@ -3,9 +3,10 @@
 Port of ``repro.analysis.audit.fixtures``. Each fixture breaks exactly the
 invariant its name says: a dense sketch built at n = 4096, a weighted copy
 of A, two all-reduces in one sharded pass, an all-reduce inside a loop
-trip, a bf16 ``mm`` left bf16, a bf16 loop carry, a bf16 factorization, a
-reused seed literal, a bare status compare, a library opened per call, and
-on the card a segment that copies the ladder. The auditor runs the real
+trip, a host verdict inside a loop trip, a bf16 ``mm`` left bf16, a bf16
+loop carry, a bf16 factorization, a reused seed literal, a bare status
+compare, a library opened per call, and on the card a segment that copies
+the ladder. The auditor runs the real
 rules on them and requires each to FAIL under its rule with a provenance
 in ``src/repro_torch``: a rule that cannot catch its own seeded violation
 is a rubber stamp, not a gate.
@@ -27,12 +28,12 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import adaptive_padded as ap
-from repro_torch.core.distributed import all_reduce_sum
+from repro_torch.core.distributed import all_reduce_sum, host_verdict
 from repro_torch.kernels import _build
 from repro_torch.kernels.gaussian_gram import gaussian_s_dense
 
 from . import op_trace as ot
-from .entrypoints import EntryPoint, problem
+from .entrypoints import VERDICT_SHAPE, EntryPoint, problem
 
 # big enough that the chunk-aware one-touch allowances do not excuse the
 # violation: n exceeds the 2048-column stream chunk
@@ -129,6 +130,34 @@ def loop_allreduce_ep() -> EntryPoint:
                       rank_build=rank_build)
 
 
+def verdict_in_trip_ep() -> EntryPoint:
+    """Engine trips whose H·v takes a host verdict: the segment-boundary
+    decision of a sharded solve moved inside the loop."""
+
+    def rank_build(mesh, dev):
+        q, seeds = problem(dev, b=_B, n=256, d=_D)
+        pre, st = ap.prepare_padded_solve(q, seeds, m_max=_M, device=dev)
+        G = torch.bmm(q.A.transpose(1, 2), q.A)
+        reg = (q.nu ** 2)[:, None] * q.lam_diag
+
+        def deciding_hvp(v):
+            host_verdict(mesh, stop=False, expired=False)
+            return torch.bmm(G, v[:, :, None])[:, :, 0] + reg * v
+
+        def fn(st=st):
+            for _ in range(3):
+                st = ap._trip(q, pre, st, deciding_hvp, method="pcg", max_iters=100,
+                              rho=0.5, tol=1e-10, guards=True, top=pre.pinvs.shape[0] - 1)
+            return st
+
+        return ot.record(fn, watch=[q.A], device=dev)
+
+    return EntryPoint("fixture:verdict_in_trip", "sharded", None,
+                      _meta("collective_inventory", psum_budget=3,
+                            psum_shapes=[VERDICT_SHAPE] * 3),
+                      rank_build=rank_build)
+
+
 # ---------------------------------------------------------------------------
 # precision_boundary
 # ---------------------------------------------------------------------------
@@ -185,7 +214,7 @@ def bf16_cholesky_ep() -> EntryPoint:
 def fixture_targets() -> list[EntryPoint]:
     """The traced fixtures (run through the rules like entry points)."""
     return [dense_sketch_ep(), a_copy_ep(), double_allreduce_ep(), loop_allreduce_ep(),
-            bf16_mm_ep(), bf16_carry_ep(), bf16_cholesky_ep()]
+            verdict_in_trip_ep(), bf16_mm_ep(), bf16_carry_ep(), bf16_cholesky_ep()]
 
 
 # ---------------------------------------------------------------------------

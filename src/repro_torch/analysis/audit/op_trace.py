@@ -19,6 +19,11 @@ whether it read the watched tensor A.
   the dispatcher. A trace takes ``ops.LAUNCHES`` and ``ops.BODY_LAUNCHES``
   before and after, and ``count_a_consumers`` counts each launch as one
   consumer of A.
+* Live bytes: every new storage is counted from the op that made it until
+  the storage itself is freed (a weak-reference finalizer on the storage,
+  so a view that outlives the tensor keeps its bytes counted), so
+  ``peak_live_bytes`` is the largest sum of the run's own tensors alive at
+  once: the CPU's counterpart of the card's peak above entry.
 * Provenance: the innermost frame under ``src/repro_torch`` outside this
   module, taken only for the sites a rule can report (new storage, a
   factorization, a collective, a contraction).
@@ -29,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import sys
+import weakref
 from pathlib import Path
 from typing import Callable, Iterable, Iterator
 
@@ -98,6 +104,7 @@ class OpTrace:
     body_launches: dict[str, int]
     device: str = "cpu"
     trips: int = 0
+    peak_live_bytes: int = 0
     carries: list[tuple[str, dict[str, torch.dtype], str]] = dataclasses.field(
         default_factory=list)
     result: object = None
@@ -149,6 +156,18 @@ class _Recorder(TorchDispatchMode):
         self.trip_depth = 0
         self.trips = 0
         self.carries: list = []
+        self.live: dict[int, int] = {}       # storage key → bytes, while alive
+        self.live_bytes = 0
+        self.peak_live_bytes = 0
+
+    def _release(self, key: int) -> None:
+        self.live_bytes -= self.live.pop(key, 0)
+
+    def _track(self, t: torch.Tensor, key: int) -> None:
+        if key not in self.live:
+            self.live[key] = nbytes = t.untyped_storage().nbytes()
+            self.live_bytes += nbytes
+            weakref.finalize(t.untyped_storage(), self._release, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -157,6 +176,10 @@ class _Recorder(TorchDispatchMode):
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         in_keys = {_storage_key(t) for t in ins}
         new = tuple(_storage_key(t) not in in_keys for t in outs)
+        for t, is_new in zip(outs, new):
+            if is_new:
+                self._track(t, _storage_key(t))
+        self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
         base = _base(func)
         reads_a = bool(self.watch) and not func.is_view and bool(in_keys & self.watch)
         reportable = (any(new) or base in FACTORIZATION_OPS or base in CONTRACTION_OPS
@@ -221,7 +244,8 @@ def record(fn: Callable[[], object], watch: Iterable[torch.Tensor] = (),
         sites=rec.sites,
         launches={k: v - launches0[k] for k, v in ops.LAUNCHES.items()},
         body_launches={k: v - bodies0[k] for k, v in ops.BODY_LAUNCHES.items()},
-        device=str(torch.device(device)), trips=rec.trips, carries=rec.carries, result=result)
+        device=str(torch.device(device)), trips=rec.trips,
+        peak_live_bytes=rec.peak_live_bytes, carries=rec.carries, result=result)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro_torch.device import resolve_device
 
 from . import fixtures
 from .ast_rules import lint_tree
-from .entrypoints import EntryPoint, build_targets, trace_in_ranks
+from .entrypoints import EntryPoint, build_targets, port_targets, trace_in_ranks
 from .retrace import check_rebuild_sentinel, check_segment_state, run_behavioral_checks
 from .rules import RULES, RuleResult, Violation, check_fp32_identity
 
@@ -172,7 +172,7 @@ def run_audit(quick: bool = False, entry_filter: str = "", rule_filter: str = ""
     def want(rule_name: str) -> bool:
         return not rule_filter or rule_filter in rule_name
 
-    eps = [ep for ep in build_targets(quick=quick)
+    eps = [ep for ep in [*build_targets(quick=quick), *port_targets()]
            if not entry_filter or entry_filter in ep.name]
     eps = [ep for ep in eps if any(want(r.name) and r.applies(ep) for r in RULES)]
     fixture_eps = ([] if entry_filter else
@@ -236,7 +236,7 @@ def main(argv=None) -> int:
 
     report = run_audit(quick=args.quick, entry_filter=args.entry, rule_filter=args.rule,
                        device=args.device)
-    names = [ep.name for ep in build_targets(quick=args.quick)]
+    names = [ep.name for ep in [*build_targets(quick=args.quick), *port_targets()]]
     print(f"entry points ({len(names)}): {' '.join(names)}")
     print(report.human_report())
     if args.json:

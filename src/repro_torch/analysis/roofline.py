@@ -11,11 +11,27 @@ One function per Pallas body of the reference returns (FLOPs, bytes) of
 one call at given shapes and dtype leg; ``chip_smoke.py`` phase 3 takes its
 bounds from them. ``solver_model_flops`` and ``SOLVER_SHAPES`` are the
 reference's analytic useful-work count, unchanged.
+
+The record-reading half reads the dry-run's records
+(``launch.dryrun_solver``, the reference's record layout) into the three
+per-device terms, each a data-sheet time, not a measurement:
+
+    compute    = Σ_dtype FLOPs / the dtype's peak (fp32 67, bf16 989 TFLOP/s)
+    memory     = bytes accessed / PEAK_BYTES
+    collective = collective bytes / NVLINK_BYTES
+
+The records are per rank, as the reference's per-device ones are, so the
+chip count cancels. ``mfu`` divides the useful work by the chips' bf16
+peak over the step's bound. The model cells' branch of ``model_flops_for``
+waits for the port of the reference's model configs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+from pathlib import Path
 
 # H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, bf16 on the
 # tensor cores (the reduced legs multiply bf16 values into fp32 sums), HBM3
@@ -107,3 +123,90 @@ def solver_model_flops(arch: str, shape: str) -> float:
     # two (d, d)-triangular preconditioner solves on (d, c)
     pcg = iters * (4.0 * n * d * c + 2.0 * d * d * c)
     return sketch + gram + chol + pcg
+
+
+def peak_for(dtype: str) -> float:
+    """The data-sheet peak of a dtype's products: bf16 and fp16 on the
+    tensor cores, anything else at the fp32 rate."""
+    return PEAK_BF16_FLOPS if dtype in ("bfloat16", "float16") else PEAK_FP32_FLOPS
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    step_kind: str
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    model_flops: float
+    hlo_flops_total: float
+    useful_ratio: float
+    bottleneck: str
+    step_time_s: float       # max of the three terms (no-overlap bound)
+    roofline_frac: float     # compute_s / step_time_s
+    mfu: float               # model_flops / (chips · bf16 peak · step_time)
+    per_device_bytes: dict
+
+    def row(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def model_flops_for(arch: str, shape: str) -> float:
+    """Useful FLOPs of a dry-run record: analytic for the solver cells
+    (``solver_model_flops``). A model cell raises KeyError: its branch waits
+    for the port of the reference's model configs."""
+    if arch.startswith("solver"):
+        return solver_model_flops(arch, shape)
+    raise KeyError(f"no useful-FLOPs count for {arch!r}: the port has no model configs yet")
+
+
+def analyze_record(rec: dict) -> Roofline | None:
+    """The three terms of one record, or None when it did not run or names
+    a cell without a useful-FLOPs count."""
+    if rec.get("status") != "ok":
+        return None
+    chips = rec["n_devices"]
+    flops_dev = max(rec.get("hlo_dot_flops") or 0.0, rec.get("flops") or 0.0)
+    by_dtype = rec.get("flops_by_dtype") or {"float32": flops_dev}
+    compute_s = sum(f / peak_for(dt) for dt, f in by_dtype.items())
+    memory_s = (rec.get("bytes_accessed") or 0.0) / PEAK_BYTES
+    collective_s = rec["collectives"]["total_bytes"] / NVLINK_BYTES
+    try:
+        mf = model_flops_for(rec["arch"], rec["shape"])
+    except KeyError:
+        return None
+    hlo_total = flops_dev * chips
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    step_time = max(terms.values())
+    return Roofline(
+        arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+        step_kind=rec.get("step_kind", "?"), compute_s=compute_s, memory_s=memory_s,
+        collective_s=collective_s, model_flops=mf, hlo_flops_total=hlo_total,
+        useful_ratio=mf / hlo_total if hlo_total else 0.0, bottleneck=bottleneck,
+        step_time_s=step_time,
+        roofline_frac=compute_s / step_time if step_time else 0.0,
+        mfu=mf / (chips * PEAK_BF16_FLOPS * step_time) if step_time else 0.0,
+        per_device_bytes=rec.get("memory", {}))
+
+
+def load_all(results_dir: str | Path = "results/dryrun_torch") -> list[Roofline]:
+    """Every analyzable record under ``results_dir/<mesh>/*.json``."""
+    out = []
+    for f in sorted(Path(results_dir).glob("*/*.json")):
+        r = analyze_record(json.loads(f.read_text()))
+        if r:
+            out.append(r)
+    return out
+
+
+def markdown_table(rows: list[Roofline]) -> str:
+    hdr = ("| arch | shape | mesh | step | compute (s) | memory (s) | collective (s) "
+           "| bottleneck | useful FLOPs | MFU bound |\n"
+           "|---|---|---|---|---|---|---|---|---|---|\n")
+    return hdr + "".join(
+        f"| {r.arch} | {r.shape} | {r.mesh} | {r.step_kind} | {r.compute_s:.3e} "
+        f"| {r.memory_s:.3e} | {r.collective_s:.3e} | **{r.bottleneck}** "
+        f"| {r.useful_ratio:.2f} | {r.mfu:.3f} |\n" for r in rows)

@@ -34,6 +34,17 @@ pass is ``shard_level_grams``, its true Gram the local AᵀA plus one
 all-reduce, and with ``gram_hvp`` off its matrix-free H·v all-reduces AᵀAv
 every trip, the only collective inside the loop. Everything after the
 reductions is replicated, so every rank takes the same host decisions.
+
+Host decisions. The reference has one controller, which reads one clock
+and one signal; here every rank has its own. A decision that reads them
+goes through one collective at a point every rank reaches on replicated
+control flow: ``host_verdict`` (a MAX all-reduce of a (2,) int32: any
+rank's preemption flag, and the lead rank's deadline, ``is_lead``) at a
+segment boundary or between Newton steps, and ``lead_values`` (the lead
+rank's fp64 budgets, one all-reduce in which the others send zeros)
+before a retry or a flush's dispatch. The lead rank alone writes a
+checkpoint of replicated state, and ``barrier`` holds the others until it
+is committed.
 """
 
 from __future__ import annotations
@@ -78,6 +89,58 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     for a in data_axes(mesh):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
     return t
+
+
+def is_lead(mesh) -> bool:
+    """Whether this rank is the mesh's first (coordinate 0 on every dim):
+    the rank whose clock the host decisions read."""
+    return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _all_reduce_mesh(t: torch.Tensor, mesh, op) -> torch.Tensor:
+    """``t`` reduced with ``op`` over every rank of the mesh (one all-reduce
+    a mesh dim: one on a one-dimensional mesh), in place."""
+    for a in mesh.mesh_dim_names:
+        dist.all_reduce(t, op=op, group=mesh.get_group(a))
+    return t
+
+
+def host_verdict(mesh, *, stop: bool, expired: bool) -> tuple[bool, bool]:
+    """One host decision for every rank: ``(stop, expired)`` after one MAX
+    all-reduce of a 2-element int32 tensor over the whole mesh, on the
+    rank's device. ``stop`` is any rank's own (a scheduler may preempt one
+    host, and one preempted rank stops them all); ``expired`` is the lead
+    rank's alone (``is_lead``: only its clock counts, the others send 0).
+    Every rank must call it at the same point, on replicated control flow."""
+    flags = torch.tensor([int(bool(stop)), int(bool(expired) and is_lead(mesh))],
+                         dtype=torch.int32, device=_mesh_device(mesh))
+    stop_all, expired_all = _all_reduce_mesh(flags, mesh, dist.ReduceOp.MAX).tolist()
+    return bool(stop_all), bool(expired_all)
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of the mesh reaches this point (one barrier a
+    mesh dim): the lead rank's checkpoint is committed before any rank goes
+    on."""
+    for a in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(a))
+
+
+def lead_values(mesh, values) -> list[float]:
+    """The lead rank's fp64 ``values`` (a number or a sequence), on every
+    rank: one SUM all-reduce over the whole mesh in which the other ranks
+    send zeros (x + 0 = x exactly). The budgets of a sharded solve come
+    from here, so every rank dispatches on the lead rank's clock."""
+    seq = [float(v) for v in (values if isinstance(values, (list, tuple)) else [values])]
+    t = torch.tensor(seq if is_lead(mesh) else [0.0] * len(seq), dtype=torch.float64,
+                     device=_mesh_device(mesh))
+    return _all_reduce_mesh(t, mesh, dist.ReduceOp.SUM).tolist()
 
 
 def _check_divisible(n: int, mesh) -> int:

@@ -58,11 +58,13 @@ from repro_torch.kernels.precision import (  # noqa: F401
     COMPUTE_DTYPES,
     canonical_compute_dtype,
     contract_dtype,
-    round_to,
 )
 
 from .quadratic import Quadratic
 
+# columns of the dense S rounded per step in the reduced modes: the bf16
+# temporary stays a block, not half of S
+_ROUND_BLOCK = 256
 
 def prefix_level_grams(R: torch.Tensor, ladder: tuple[int, ...], *,
                        inv_m_scale: bool) -> torch.Tensor:
@@ -124,12 +126,30 @@ class GaussianDenseProvider:
         seeds = data["seeds"]
         A, scale = resolve_stream(q.A, seeds.shape[0], _weights(q, row_weights),
                                   compute_dtype)
-        S = gaussian_s_dense(seeds, ladder[-1], q.n)
-        if scale is not None:
-            S = S * scale[:, None, :]
         ct = contract_dtype(compute_dtype)
-        SA = torch.matmul(round_to(S, ct), round_to(A, ct))
-        return prefix_level_grams(SA, ladder, inv_m_scale=True)
+        return prefix_level_grams(_dense_sa(seeds, ladder[-1], A, scale, ct), ladder,
+                                  inv_m_scale=True)
+
+
+def _dense_sa(seeds, m: int, A: torch.Tensor, scale, ct: torch.dtype) -> torch.Tensor:
+    """S·diag(scale)·A with the materialized S, which is scaled and rounded
+    in place (elementwise, so bitwise the out-of-place result) and freed
+    before the caller builds the Grams: the pass holds one S, and in the
+    reduced modes one fp32 copy of A, rounded a block of rows at a time
+    (``round_to`` whole would also hold an A-sized ``ct`` copy)."""
+    S = gaussian_s_dense(seeds, m, A.shape[-2])
+    if scale is not None:
+        S.mul_(scale[:, None, :])
+    if ct != torch.float32:
+        for c0 in range(0, S.shape[-1], _ROUND_BLOCK):
+            block = S[..., c0:c0 + _ROUND_BLOCK]
+            block.copy_(block.to(ct))             # round_to, a block at a time
+    if A.dtype == torch.float32 and ct == torch.float32:
+        return torch.matmul(S, A)
+    A_r = torch.empty(A.shape, dtype=torch.float32, device=A.device)
+    for r0 in range(0, A.shape[-2], _ROUND_BLOCK):
+        A_r[..., r0:r0 + _ROUND_BLOCK, :].copy_(A[..., r0:r0 + _ROUND_BLOCK, :].to(ct))
+    return torch.matmul(S, A_r)
 
 
 def _n_pad(n: int) -> int:

@@ -102,13 +102,11 @@ def adaptive_newton_solve_batched(
     ``mesh`` (``core.distributed``): every rank holds the whole (A, y), and
     only each Newton system q_t is row-sharded (this rank's block of A and
     of the weights), as in the reference; the gradient, the line search and
-    the weights stay replicated. A deadline is refused under a mesh, since
-    it is read on each rank's own clock between outer steps."""
+    the weights stay replicated. A deadline is read between outer steps
+    through one ``host_verdict``: the lead rank's clock decides for every
+    rank."""
     dev = resolve_device(device)
     require_on(dev, A=A, y=y)
-    if mesh is not None and deadline_s is not None:
-        raise ValueError("a row-sharded Newton solve takes no deadline: each rank "
-                         "would read its own clock")
     seeds = batch_seeds(0 if seeds is None else seeds, y.shape[0], dev)
 
     def inner_solve(t, q_t, level):
@@ -124,16 +122,17 @@ def adaptive_newton_solve_batched(
     return _newton_loop(family, A, y, nu, lam_diag, inner_solve,
                         newton_iters=newton_iters, tol=tol,
                         ls_backtracks=ls_backtracks, c1=ls_c1,
-                        deadline_s=deadline_s)
+                        deadline_s=deadline_s, mesh=mesh)
 
 
 def _newton_loop(family, A, y, nu, lam_diag, inner_solve, *, newton_iters: int,
                  tol: float, ls_backtracks: int, c1: float = 1e-4,
-                 deadline_s: float | None = None):
+                 deadline_s: float | None = None, mesh=None):
     """The damped-Newton outer loop shared by the driver and the references
     (one copy of the stopping, line-search and freeze logic).
     ``inner_solve(t, q_t, level)`` returns the Newton step of the weighted
-    system ``q_t`` and the engine's stats (driver) or None (references)."""
+    system ``q_t`` and the engine's stats (driver) or None (references).
+    Under ``mesh`` the deadline is the lead rank's (``host_verdict``)."""
     obj = get_objective(family)
     B, d, dev, dt = y.shape[0], A.shape[-1], A.device, A.dtype
     nu_b, lam_b = _as_batched_reg(nu, lam_diag, B, d, dt, dev)
@@ -150,10 +149,15 @@ def _newton_loop(family, A, y, nu, lam_diag, inner_solve, *, newton_iters: int,
     t_start = time.perf_counter()
 
     for t in range(newton_iters):
-        if (deadline_s is not None and t > 0
-                and time.perf_counter() - t_start >= deadline_s):
-            expired = ~done     # spent between outer steps: the verdict below
-            break
+        if deadline_s is not None and t > 0:
+            late = time.perf_counter() - t_start >= deadline_s
+            if mesh is not None:
+                from .distributed import host_verdict
+
+                _, late = host_verdict(mesh, stop=False, expired=late)
+            if late:
+                expired = ~done     # spent between outer steps: the verdict below
+                break
         g, w = glm_grad_and_weights(obj, A, y, nu_b, lam_b, x)
         q_t = Quadratic(A=A, b=-g, nu=nu_b, lam_diag=lam_b, batched=True,
                         row_weights=w)

@@ -98,13 +98,13 @@ def _as_checkpoint_manager(checkpoint):
                     f"{type(checkpoint).__name__}")
 
 
-def _solve_fingerprint(q: Quadratic, *, m_max, method, sketch, max_iters) -> str:
+def _solve_fingerprint(q: Quadratic, n: int, *, m_max, method, sketch, max_iters) -> str:
     """Guards a resume against a checkpoint of another solve: a restored
     state means something only under the same shapes and the same
-    (recomputed) precompute. The reference's string, so a checkpoint moves
-    between the packages."""
+    (recomputed) precompute. The reference's string, with ``n`` the global
+    row count, so a checkpoint moves between the packages."""
     sk = getattr(sketch, "name", None) or str(sketch)
-    return f"{q.batch}x{q.n}x{q.d}:m{m_max}:{method}:{sk}:mi{max_iters}"
+    return f"{q.batch}x{n}x{q.d}:m{m_max}:{method}:{sk}:mi{max_iters}"
 
 
 def _gather_quadratic(q: Quadratic, idx: torch.Tensor,
@@ -176,19 +176,28 @@ def segmented_padded_solve_batched(
       ladder's length of extra trips for the re-climb.
     * ``grams`` / ``gram_full`` / ``x0`` — forwarded to ``prepare``.
 
-    Extra stats: ``segments`` (segments run in this call), ``resumed`` and
-    ``deadline_hit``.
+    Extra stats: ``segments`` (segments run in this call), ``resumed``,
+    ``deadline_hit``, and ``verdicts`` / ``verdict_s`` (the host verdicts a
+    sharded solve took and their seconds).
 
-    ``mesh``: q is this rank's row block (``core.distributed``); every host
-    decision then reads replicated state. A deadline, a preemption flag and
-    a checkpoint are refused under a mesh: the first two are read on each
-    rank's own clock and signal, and every rank would write the same
-    checkpoint directory."""
+    ``mesh``: q is this rank's row block (``core.distributed``), and every
+    host decision reads replicated values. The loop state is replicated
+    (its Grams are all-reduced), so the done mask and the trip count agree
+    on every rank; a deadline or a preemption flag is read through one
+    ``host_verdict`` per segment boundary, and only there: each rank's flag
+    counts (one preempted rank stops them all, at the same segment), and
+    only the lead rank's clock. The lead rank alone writes the checkpoint,
+    and every rank waits at a barrier until it is committed. Every rank
+    resumes the lead rank's latest step (one ``lead_values``), from a
+    directory every rank must see: a rank that cannot read that step, or
+    whose fingerprint differs, fails one more verdict, and then every rank
+    raises ValueError. The fingerprint carries the global n
+    (q.n times the data shards), so a checkpoint moves between the
+    packages, and a resume onto another shard count passes it. Such a
+    resume recomputes ``prepare`` with the new blocks' sketches, so it
+    answers within the solve's tolerance, not bitwise."""
     if int(segment_trips) < 1:
         raise ValueError(f"segment_trips must be at least 1, got {segment_trips}")
-    if mesh is not None and any(v is not None for v in (deadline_s, checkpoint, preempt)):
-        raise ValueError("a row-sharded solve takes no deadline, checkpoint or "
-                         "preemption flag: each rank would decide on its own")
     t0 = time.perf_counter()
     dev = resolve_device(device)
     pre, st = prepare_padded_solve(
@@ -198,39 +207,81 @@ def segmented_padded_solve_batched(
     trip_budget = padded_trip_cap(m_max, max_iters)
     ladder_len = len(doubling_ladder(m_max))
     ckpt = _as_checkpoint_manager(checkpoint)
-    fingerprint = _solve_fingerprint(q, m_max=m_max, method=method, sketch=sketch,
-                                     max_iters=max_iters)
+    n_global = q.n
+    if mesh is not None:
+        from .distributed import (
+            barrier,
+            data_index,
+            host_verdict,
+            is_lead,
+            lead_values,
+            n_data_shards,
+        )
+
+        n_global *= n_data_shards(mesh)
+    fingerprint = _solve_fingerprint(q, n_global, m_max=m_max, method=method,
+                                     sketch=sketch, max_iters=max_iters)
     # seg numbers segments across restarts, seg_ran those of this call
     seg = seg_ran = 0
     resumed = False
-    if ckpt is not None and resume and ckpt.latest_step() is not None:
-        restored, extra = ckpt.restore(st._asdict())
-        got = extra.get("fingerprint")
-        if got != fingerprint:
-            raise ValueError(
-                f"checkpoint fingerprint mismatch: checkpoint is for {got!r}, this "
-                f"solve is {fingerprint!r}; refusing to resume onto another problem")
+    step = ckpt.latest_step() if ckpt is not None and resume else None
+    if mesh is not None and ckpt is not None and resume:
+        # one decision for every rank: the lead rank's latest step (-1: none)
+        (lead_step,) = lead_values(mesh, -1 if step is None else step)
+        step = None if lead_step < 0 else int(lead_step)
+    if step is not None:
+        err = None
+        try:
+            restored, extra = ckpt.restore(st._asdict(), step=step)
+            got = extra.get("fingerprint")
+            if got != fingerprint:
+                raise ValueError(
+                    f"checkpoint fingerprint mismatch: checkpoint is for {got!r}, this "
+                    f"solve is {fingerprint!r}; refusing to resume onto another problem")
+        except Exception as e:
+            if mesh is None:
+                raise
+            err = e
+        if mesh is not None:
+            # every rank restores the lead rank's step, or every rank raises
+            failed, _ = host_verdict(mesh, stop=err is not None, expired=False)
+            if failed:
+                raise ValueError(
+                    f"rank {data_index(mesh)} cannot resume step {step} of {ckpt.dir}: "
+                    f"{err if err is not None else 'another rank cannot read it'}") from err
         st = PaddedState(**restored)
-        seg = int(extra.get("segment", ckpt.latest_step()))
+        seg = int(extra.get("segment", step))
         trip_budget = int(extra.get("trip_budget", trip_budget))
         resumed = True
 
     def save(segment: int):
-        ckpt.save(segment, st._asdict(), blocking=True,
-                  extra={"segment": segment, "fingerprint": fingerprint,
-                         "trip_budget": trip_budget})
+        # sharded: the state is replicated, so the lead rank writes it and
+        # every rank waits until it is committed
+        if mesh is None or is_lead(mesh):
+            ckpt.save(segment, st._asdict(), blocking=True,
+                      extra={"segment": segment, "fingerprint": fingerprint,
+                             "trip_budget": trip_budget})
+        if mesh is not None:
+            barrier(mesh)
 
     deadline_hit = False
+    verdicts, verdict_s = 0, 0.0
     while True:
         trips_now = int(st.trips)
         if bool(st.done.all()) or trips_now >= trip_budget:
             break
-        if preempt is not None and getattr(preempt, "should_stop", False):
+        stop = preempt is not None and bool(getattr(preempt, "should_stop", False))
+        late = deadline_s is not None and time.perf_counter() - t0 >= deadline_s
+        if mesh is not None and (preempt is not None or deadline_s is not None):
+            tv = time.perf_counter()
+            stop, late = host_verdict(mesh, stop=stop, expired=late)
+            verdicts += 1
+            verdict_s += time.perf_counter() - tv
+        if stop:
             if ckpt is not None:
                 save(seg)
             raise PreemptedError(seg, getattr(ckpt, "dir", None))
-        if (deadline_s is not None and seg_ran > 0
-                and time.perf_counter() - t0 >= deadline_s):
+        if late and seg_ran > 0:            # the first segment always runs
             deadline_hit = True
             break
         limit = min(trip_budget, trips_now + int(segment_trips))
@@ -256,7 +307,8 @@ def segmented_padded_solve_batched(
         # deadline; finished problems keep theirs bit for bit
         status = torch.where(st.done, stats["status"], int(SolveStatus.DEADLINE_EXCEEDED))
         stats.update(status=status, stalled=status == int(SolveStatus.STALLED))
-    stats.update(segments=seg_ran, resumed=resumed, deadline_hit=deadline_hit)
+    stats.update(segments=seg_ran, resumed=resumed, deadline_hit=deadline_hit,
+                 verdicts=verdicts, verdict_s=verdict_s)
     return x, stats
 
 
@@ -313,12 +365,10 @@ def robust_padded_solve_batched(
     the first attempt's checkpoint.
 
     ``mesh``: q is this rank's row block (``core.distributed``); every
-    attempt runs sharded and the fallback's Gram is all-reduced. A
-    deadline is refused under a mesh (each rank would read its own
-    clock)."""
-    if mesh is not None and deadline_s is not None:
-        raise ValueError("a row-sharded solve takes no deadline: each rank would "
-                         "read its own clock")
+    attempt runs sharded and the fallback's Gram is all-reduced. Under a
+    deadline the lead rank's remaining budget is broadcast before each
+    attempt and before the fallback (``lead_values``), so every rank
+    retries, falls back and stops on the same clock."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     B = q.batch
@@ -328,7 +378,14 @@ def robust_padded_solve_batched(
     seg_trips = DEFAULT_SEGMENT_TRIPS if segment_trips is None else int(segment_trips)
 
     def remaining():
-        return None if deadline_s is None else deadline_s - (time.perf_counter() - t0)
+        if deadline_s is None:
+            return None
+        left = deadline_s - (time.perf_counter() - t0)
+        if mesh is not None:
+            from .distributed import lead_values
+
+            (left,) = lead_values(mesh, left)
+        return left
 
     def solve(qq, ss, lvl, *, budget=None, **first):
         kw = dict(m_max=m_max, method=method, sketch=sketch, max_iters=max_iters,

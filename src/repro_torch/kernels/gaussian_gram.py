@@ -29,6 +29,10 @@ from .precision import canonical_compute_dtype, contract_dtype, round_to
 # _MICRO-column steps, so its chunk size never changes the numbers.
 _MICRO = 256
 _COL_BITS = 20                 # counters: row · 2^20 + col
+# The dense S is built in this many column blocks: the plain hash keeps
+# about eight int64 block-sized temporaries alive at once, which then total
+# about an eighth of S's 4·B·m·n bytes at every n
+_DENSE_STEPS = 128
 MAX_N = 1 << _COL_BITS         # column capacity of the counter packing
 MAX_M = 1 << (32 - _COL_BITS)  # row capacity
 
@@ -116,9 +120,19 @@ def check_caps(n: int, m: int) -> None:
 
 
 def gaussian_s_dense(seeds: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """The full (B, m, n) sketch, materialized: the dense baseline."""
+    """The full (B, m, n) fp32 sketch, materialized: the dense baseline.
+
+    S is preallocated and filled in ``_DENSE_STEPS`` column blocks. The
+    entries are counter hashes of (row, column), so the result is bitwise
+    one ``gaussian_tile`` call's, while each of the plain hash's int64
+    temporaries is one block's (1/64 of S's bytes) instead of twice S's."""
     check_caps(n, m)
-    return gaussian_tile(seeds, 0, 0, (m, n))
+    S = torch.empty((seeds.shape[0], m, n), dtype=torch.float32, device=seeds.device)
+    blk = -(-n // _DENSE_STEPS)
+    for c0 in range(0, n, blk):
+        c1 = min(n, c0 + blk)
+        S[:, :, c0:c1] = gaussian_tile(seeds, 0, c0, (m, c1 - c0))
+    return S
 
 
 def resolve_stream(A: torch.Tensor, B: int, row_weights: torch.Tensor | None,

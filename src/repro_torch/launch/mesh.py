@@ -6,7 +6,9 @@ devices of one controller; here a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
 process group, with named dims ``("data", "model")`` (``core.distributed``
 reads ``data_axes``, ``n_data_shards`` and this rank's ``data_index``).
-Meshes are made by functions, never at import.
+Meshes are made by functions, never at import; ``make_production_mesh``
+gives the reference's 16×16 and 2×16×16 meshes over a fake process group,
+for the dry-run (``launch.dryrun_solver``).
 
 ``run_ranks(job, world, payload)`` starts ``world`` processes of
 ``python -m repro_torch.launch.mesh``, each of which forms the process
@@ -14,7 +16,10 @@ group from a ``file://`` store in a fresh temporary directory (no TCP port,
 so concurrent launchers never collide), builds a one-dimensional
 ``("data",)`` mesh, calls ``job(mesh, payload)`` and saves its result; the
 launcher returns the results in rank order, and on any failure or timeout
-kills every rank and raises with the failing rank's traceback. ``job`` is a
+kills every rank and raises with the failing rank's traceback. A rank that
+ends with ``RankExit(EXIT_PREEMPTED)`` (75: preempted, its checkpoint
+committed) has not failed, and its result carries its ``exit_code``.
+``job`` is a
 ``"module:function"`` name, imported in each child: keep rank programs in
 modules that import only the port (``launch.sharded``). ``backend`` is
 ``"gloo"`` (the CPU, or K ranks that share one card: NCCL does not put two
@@ -28,9 +33,12 @@ Each rank runs its torch ops on one thread.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
+import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -57,6 +65,36 @@ def rank_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` over a fake process group (torch's
+    testing ``FakeStore``, backend ``"fake"``): no rank exists and a
+    collective moves no byte, which is what a dry-run traces (under
+    ``FakeTensorMode``). This process is rank 0. The group is made on entry
+    and destroyed on exit; a process that already has a process group is
+    refused, so a real group is never touched."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a fake mesh needs a process without a process group; "
+                           "this one has one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield _init_mesh("cpu", tuple(shape), tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production meshes, over a fake group (``fake_mesh``, a
+    context manager): 16×16 ``("data", "model")`` (256 chips) or 2×16×16
+    ``("pod", "data", "model")`` (512)."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(model: int | None = None, *, device_type: str | None = None):
@@ -86,6 +124,10 @@ def make_elastic_mesh(n_devices: int, *, device_type: str | None = None):
     return _init_mesh(device_type, plan_mesh_shape(n_devices), ("data", "model"))
 
 
+EXIT_PREEMPTED = 75          # EX_TEMPFAIL: preempted after a commit; restart to resume
+_CLEAN_EXITS = (None, 0, EXIT_PREEMPTED)
+
+
 def _resolve(job: str):
     module, _, name = job.partition(":")
     return getattr(importlib.import_module(module), name)
@@ -97,11 +139,28 @@ def _src_dir() -> str:
     return str(Path(repro_torch.__file__).resolve().parents[1])
 
 
+class RankExit(Exception):
+    """Raised by a rank program to end its rank with exit code ``code`` and
+    still hand ``result`` (a dict) back, with ``exit_code`` = ``code`` in it:
+    ``EXIT_PREEMPTED`` after a preempted solve committed its checkpoint."""
+
+    def __init__(self, code: int, result: dict | None = None):
+        super().__init__(f"rank exits {code}")
+        self.code = code
+        self.result = {**(result or {}), "exit_code": code}
+
+
 def run_ranks(job: str, world: int, payload=None, *, backend: str = "gloo",
-              device=None, timeout: float = 600.0) -> list:
+              device=None, timeout: float = 600.0, signal_rank=None) -> list:
     """Run ``job(mesh, payload)`` on ``world`` ranks (module docstring);
     returns the rank results in rank order. ``payload`` and the results
-    cross the process boundary through ``torch.save``."""
+    cross the process boundary through ``torch.save``.
+
+    A rank that raises ``RankExit(EXIT_PREEMPTED, result)`` exits 75, which
+    is not a failure: its result holds ``exit_code`` 75, so the caller sees
+    which ranks were preempted. ``signal_rank=(rank,
+    marker, seconds)`` sends SIGTERM to that rank ``seconds`` after the line
+    ``marker`` appears in its output (a scheduler preempting one host)."""
     device = resolve_device(device).type
     tmp = Path(tempfile.mkdtemp(prefix="repro_torch_ranks_"))
     procs = []
@@ -118,19 +177,29 @@ def run_ranks(job: str, world: int, payload=None, *, backend: str = "gloo",
                      "--backend", backend, "--device", device],
                     env=env, stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
+        fire_at = None
         while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            failed = [r for r, p in enumerate(procs) if p.poll() not in _CLEAN_EXITS]
             if failed or time.monotonic() > deadline:
                 break
+            if signal_rank is not None:
+                rank, marker, seconds = signal_rank
+                if fire_at is None and marker in (tmp / f"rank{rank}.log").read_text():
+                    fire_at = time.monotonic() + seconds
+                if fire_at is not None and time.monotonic() >= fire_at:
+                    if procs[rank].poll() is None:
+                        procs[rank].send_signal(signal.SIGTERM)
+                    signal_rank = None
             time.sleep(0.05)
         codes = [p.poll() for p in procs]
-        if any(c != 0 for c in codes):
-            bad = next((r for r, c in enumerate(codes) if c not in (None, 0)), 0)
+        if any(c not in (0, EXIT_PREEMPTED) for c in codes):
+            bad = next((r for r, c in enumerate(codes) if c not in _CLEAN_EXITS), 0)
             log = (tmp / f"rank{bad}.log").read_text()[-4000:]
-            what = "timed out" if all(c in (None, 0) for c in codes) else "failed"
+            what = "timed out" if all(c in _CLEAN_EXITS for c in codes) else "failed"
             raise RuntimeError(f"run_ranks({job!r}, {world}) {what}; exit codes {codes}; "
                                f"rank {bad}'s output:\n{log}")
-        return [torch.load(tmp / f"result{r}.pt", weights_only=False) for r in range(world)]
+        results = [torch.load(tmp / f"result{r}.pt", weights_only=False) for r in range(world)]
+        return results
     finally:
         for p in procs:
             if p.poll() is None:
@@ -155,7 +224,15 @@ def _rank_main(argv=None) -> int:
                                 rank=args.rank, world_size=args.world)
         mesh = _init_mesh(args.device, (args.world,), ("data",))
         payload = torch.load(tmp / "payload.pt", weights_only=False)
-        result = _resolve(args.job)(mesh, payload)
+        # run as ``-m``, this module is __main__: the rank program raises the
+        # importable module's RankExit
+        from repro_torch.launch.mesh import RankExit as rank_exit
+
+        code = 0
+        try:
+            result = _resolve(args.job)(mesh, payload)
+        except rank_exit as e:
+            code, result = e.code, e.result
         torch.save(result, tmp / f"result{args.rank}.pt")
         dist.barrier()
         dist.destroy_process_group()
@@ -163,7 +240,7 @@ def _rank_main(argv=None) -> int:
         traceback.print_exc()
         sys.stdout.flush()
         return 1
-    return 0
+    return code
 
 
 if __name__ == "__main__":

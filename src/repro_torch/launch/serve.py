@@ -7,7 +7,7 @@ through the port's shape-class bucketing and batched adaptive engine.
         [--device cuda|cpu] [--deadline-s T] [--segment-trips K] [--faulty N] \
         [--mesh K [--backend gloo|nccl]]
     PYTHONPATH=src python -m repro_torch.launch.serve --preempt-after S \\
-        [--requests N] [--device cuda|cpu]
+        [--requests N] [--device cuda|cpu] [--mesh K [--backend gloo|nccl]]
 
 Mirrors ``repro.launch.serve --ridge``; the data is drawn from a seeded
 ``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
@@ -28,8 +28,8 @@ a sharded service (``SolverService(mesh=)``) on each: every rank draws the
 same requests, keeps its row block of each packed batch and gets the same
 answers; rank 0's report is printed. The default classes then include the
 pod-scale (65536, 256, 512, srht) class. The ranks use gloo unless
-``--backend nccl`` (which needs a card per rank); a sharded service takes no
-deadline.
+``--backend nccl`` (which needs a card per rank). ``--deadline-s`` binds
+there too, on the lead rank's clock (one verdict a segment boundary).
 
 ``--preempt-after S`` runs the preemption cycle instead: it starts
 ``python -m repro_torch.launch.solve_service`` with a checkpoint directory
@@ -37,7 +37,16 @@ as a subprocess, sends it SIGTERM S seconds after its flush began, requires
 exit code 75 (the in-flight chunk committed), restarts it with
 ``--resume``, and requires a clean exit with every answer finite and
 audited against a direct solve. A flush that ends before the signal fails
-the cycle. LM serving is not ported yet.
+the cycle. With ``--mesh K`` (K ≥ 2) the cycle runs on K ranks
+(``launch.mesh.run_ranks``), each a sharded preemptible service on the
+same requests: an uninterrupted run first; then SIGTERM goes to the last
+rank only, and every rank must exit 75 after the same segment (the
+verdict), rank 0 alone having written the checkpoints; then ``--resume``
+must give answers bitwise the uninterrupted run's on every rank:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 --preempt-after 0.3
+
+LM serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -174,6 +183,73 @@ def serve_mesh(args) -> None:
     print(f"{args.mesh} ranks ({backend}) gave the same certificates")
 
 
+def preempt_rank(mesh, payload: dict) -> dict:
+    """One rank of ``--mesh K --preempt-after S``: ``launch.solve_service``'s
+    preemptible service (the cycle's flags, a SIGTERM handler) sharded over
+    ``mesh``, on the same requests on every rank. A preemption ends the rank
+    with exit 75 and its segment; a finished flush returns every answer."""
+    from repro_torch.core import PreemptedError
+    from repro_torch.launch.mesh import EXIT_PREEMPTED, RankExit, rank_device
+    from repro_torch.launch.solve_service import (
+        build_parser,
+        preemptible_service,
+        submit_requests,
+    )
+
+    args = build_parser().parse_args(payload["argv"])
+    dev = rank_device(mesh)
+    if dev.type == "cuda":
+        torch.set_float32_matmul_precision("highest")
+    svc = preemptible_service(args, mesh=mesh, device=dev)
+    requests, _ = submit_requests(svc, args)
+    print("FLUSH START", flush=True)
+    try:
+        sols = svc.flush()
+    except PreemptedError as e:
+        raise RankExit(EXIT_PREEMPTED, {"segment": e.segment}) from None
+    return {"x": [sols[rid].x.cpu() for rid in requests],
+            "status": [sols[rid].status for rid in requests],
+            "resumed_chunks": svc.stats["resumed_chunks"]}
+
+
+def serve_preempt_mesh(args) -> None:
+    """The preemption cycle on ``--mesh K`` ranks: an uninterrupted run,
+    then a run whose last rank (never rank 0) gets SIGTERM S seconds into
+    its flush: every rank must exit 75 at the same segment; then a
+    ``--resume`` run whose answers must be bitwise the uninterrupted ones."""
+    from repro_torch.launch.mesh import EXIT_PREEMPTED, run_ranks
+
+    job, K, victim = "repro_torch.launch.serve:preempt_rank", args.mesh, args.mesh - 1
+    flags = [*PREEMPT_CHILD_FLAGS, "--requests", str(args.requests)]
+    kw = dict(backend=args.backend or "gloo", device=args.device, timeout=CHILD_TIMEOUT_S)
+    ref_dir, ck = tempfile.mkdtemp(prefix="preempt_ref_"), tempfile.mkdtemp(prefix="preempt_ck_")
+    try:
+        ref = run_ranks(job, K, {"argv": flags + ["--checkpoint-dir", ref_dir]}, **kw)
+        pre = run_ranks(job, K, {"argv": flags + ["--checkpoint-dir", ck]}, **kw,
+                        signal_rank=(victim, "FLUSH START", args.preempt_after))
+        codes = [r.get("exit_code", 0) for r in pre]
+        segments = {r["segment"] for r in pre if r.get("exit_code") == EXIT_PREEMPTED}
+        print(f"preemption cycle on {K} ranks: SIGTERM to rank {victim} "
+              f"{args.preempt_after} s into the flush; exit codes {codes}, preempted at "
+              f"segment(s) {sorted(segments)}", flush=True)
+        if codes != [EXIT_PREEMPTED] * K or len(segments) != 1:
+            raise SystemExit("every rank must exit 75 after the same segment (a flush that "
+                             "ends before the signal does not count)")
+        res = run_ranks(job, K, {"argv": flags + ["--checkpoint-dir", ck, "--resume"]}, **kw)
+        same = all(torch.equal(a, b) for r in res for a, b in zip(r["x"], ref[0]["x"]))
+        same = same and all(r["status"] == ref[0]["status"] for r in res)
+        resumed = res[0]["resumed_chunks"]
+        print(f"resumed run: {resumed} chunks resumed; every rank's answers bitwise the "
+              f"uninterrupted run's: {same}; statuses {ref[0]['status']}")
+        if not (same and resumed > 0):
+            raise SystemExit("the resumed answers are not the uninterrupted run's")
+        print(f"preemption cycle OK on {K} ranks: SIGTERM on one rank → every rank exits 75 "
+              f"→ --resume → bitwise the uninterrupted answers")
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        shutil.rmtree(ck, ignore_errors=True)
+
+
 # the preempted child: at tol = 0 a chunk iterates until δ̃ is exactly 0
 # (70-80 iterations on this traffic) or the 1200-iteration cap, with no
 # retry and no fallback, so the flush is long enough for the signal to land
@@ -271,13 +347,16 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.preempt_after is not None:
         args.requests = 6 if args.requests is None else args.requests
+        if args.mesh:
+            if args.mesh < 2:
+                p.error("--mesh K with --preempt-after needs K ≥ 2: the signal goes to a "
+                        "rank other than rank 0")
+            return serve_preempt_mesh(args)
         return serve_preempt(args)
     if not args.ridge:
         p.error("pass --ridge (solver traffic) or --preempt-after S")
     args.requests = 24 if args.requests is None else args.requests
     if args.mesh:
-        if args.deadline_s is not None:
-            p.error("a sharded service takes no deadline (--mesh with --deadline-s)")
         return serve_mesh(args)
     return serve_ridge(args)
 

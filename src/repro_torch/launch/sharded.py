@@ -9,7 +9,8 @@ the sharded code through these, so a spawned rank imports only the port.
 
 Payload: ``{"tasks": [(name, kind, args), ...]}`` with ``kind`` one of
 ``TASKS``; each rank computes on its mesh's device (``launch.mesh.rank_device``,
-the ``device`` given to ``run_ranks``):
+the ``device`` given to ``run_ranks``); ``launches`` holds each task's
+kernel launches per Pallas body (``ops.BODY_LAUNCHES``) on this rank:
 
 * ``"pass"``: args ``q`` (the full batched problem on the CPU), ``seeds``,
   ``ladder``, ``sketch``, ``compute_dtype`` → ``grams`` (the summed pass),
@@ -23,14 +24,29 @@ the ``device`` given to ``run_ranks``):
 * ``"engine"``: ``q``, ``seeds`` and ``padded_adaptive_solve_batched``'s
   keywords (``kw``) → ``x`` and ``stats``, through ``sharded_padded_solve``;
 * ``"robust"``: the same through ``robust_padded_solve_batched``;
+* ``"segmented"``: ``q``, ``seeds`` and ``segmented_padded_solve_batched``'s
+  keywords (``kw``), optional ``deadlines`` (each rank's own ``deadline_s``,
+  by rank, in place of kw's), ``checkpoint`` (a directory every rank
+  shares, or a list of one directory a rank), ``resume`` and ``preempt`` =
+  (rank, poll): that rank's flag turns on at its poll-th read, every other
+  rank's stays off → ``x``,
+  ``stats`` (with ``segments``, ``deadline_hit``, ``resumed``,
+  ``verdicts``, ``verdict_s``), ``preempted`` (the segment of the
+  ``PreemptedError``, else None), ``saves`` (checkpoints this rank wrote),
+  ``wall_s``; a ``ValueError`` (a fingerprint mismatch) comes back as
+  ``error``;
+* ``"newton"``: ``A``, ``y``, ``nu`` and ``adaptive_newton_solve_batched``'s
+  keywords (``kw``) → ``x`` and ``stats``;
 * ``"service"``: ``requests`` [(A, y, ν)] (or the keywords of
   ``ridge_requests``, which each rank then draws on its device one at a
   time, submitting each before it draws the next), optional ``glm``
   [(A, y, ν)] (logistic) and ``paths`` [(A, y, ν grid)], ``service``
-  (``SolverService`` keywords) → per request x, δ̃, m_final, iters, status
+  (``SolverService`` keywords) and ``deadlines`` (each ridge request's
+  ``deadline_s`` or None) → per request x, δ̃, m_final, iters, status
   (a GLM answer its decrement and convergence, a path its points' x and
   statuses), the service's stats, the rows of each ridge and path request
-  that the rank kept queued, and the flush's wall seconds;
+  that the rank kept queued, the request ids in the order the flush
+  answered them (its dispatch order) and the flush's wall seconds;
 * ``"meshes"``: no args → the shapes, data dims and this rank's data index
   of ``launch.mesh.make_host_mesh()`` and ``make_elastic_mesh(world)``;
 * ``"imports"``: no args → the top-level packages of JAX or the reference
@@ -40,6 +56,7 @@ the ``device`` given to ``run_ranks``):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 
 import torch
@@ -130,6 +147,63 @@ def _robust(mesh, dev, a):
     return {"x": x, "stats": {k: v for k, v in stats.items() if torch.is_tensor(v)}}
 
 
+def _segmented(mesh, dev, a):
+    from repro_torch.core.robust import PreemptedError, segmented_padded_solve_batched
+    from repro_torch.ft.checkpoint import CheckpointManager
+
+    class Counting(CheckpointManager):
+        saves = 0
+
+        def save(self, *args, **kwargs):
+            self.saves += 1
+            return super().save(*args, **kwargs)
+
+    class FlagAt:
+        """Turns on at its ``poll``-th read, on rank ``rank`` only."""
+
+        def __init__(self, rank, poll):
+            self.on_this_rank, self.poll, self.reads = rank == D.data_index(mesh), poll, 0
+
+        @property
+        def should_stop(self):
+            self.reads += 1
+            return self.on_this_rank and self.reads >= self.poll
+
+    rank = D.data_index(mesh)
+    q = D.shard_quadratic(_to(a["q"], dev), mesh)
+    ck = a.get("checkpoint")
+    ckpt = Counting(ck[rank] if isinstance(ck, (list, tuple)) else ck) if ck else None
+    preempt = FlagAt(*a["preempt"]) if a.get("preempt") else None
+    kw = dict(a["kw"])
+    if a.get("deadlines") is not None:
+        kw["deadline_s"] = a["deadlines"][rank]
+    out = {"preempted": None, "error": None}
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        x, stats = segmented_padded_solve_batched(
+            q, a["seeds"].to(dev), checkpoint=ckpt, resume=a.get("resume", True),
+            preempt=preempt, mesh=mesh, device=dev, **kw)
+        out.update(x=x, stats=dict(stats))
+    except PreemptedError as e:
+        out["preempted"] = e.segment
+    except ValueError as e:
+        out["error"] = str(e)
+    _sync(dev)
+    out.update(wall_s=time.perf_counter() - t0, saves=0 if ckpt is None else ckpt.saves,
+               deadline_s=kw.get("deadline_s"))
+    return out
+
+
+def _newton(mesh, dev, a):
+    from repro_torch.core.newton import adaptive_newton_solve_batched
+
+    x, stats = adaptive_newton_solve_batched(
+        a.get("family", "logistic"), a["A"].to(dev), a["y"].to(dev), a["nu"], mesh=mesh,
+        device=dev, **a["kw"])
+    return {"x": x, "stats": {k: v for k, v in stats.items() if torch.is_tensor(v)}}
+
+
 def ridge_request(g: torch.Generator, device, n_range, d_range, decay: float = 0.95):
     """One ridge request (A, y, ν) from generator ``g`` on ``device``:
     A = U·diag(decay^i)·Vᵀ with orthonormal U, V (ill-conditioned, so the
@@ -162,7 +236,9 @@ def _service(mesh, dev, a):
     reqs = a["requests"]
     if isinstance(reqs, dict):
         reqs = ridge_requests(device=dev, **reqs)
-    ids = [svc.submit(A.to(dev), y.to(dev), nu) for A, y, nu in reqs]
+    deadlines = a.get("deadlines") or itertools.repeat(None)
+    ids = [svc.submit(A.to(dev), y.to(dev), nu, deadline_s=dl)
+           for (A, y, nu), dl in zip(reqs, deadlines)]
     glm = [svc.submit_glm(A.to(dev), y.to(dev), nu) for A, y, nu in a.get("glm", ())]
     paths = [svc.submit_path(A.to(dev), y.to(dev), nus) for A, y, nus in a.get("paths", ())]
     queued = [r.A.shape[0] for store in (svc._queues, svc._path_queues)
@@ -174,6 +250,7 @@ def _service(mesh, dev, a):
     _sync(dev)
     wall = time.perf_counter() - t0
     return {"wall_s": wall, "stats": dict(svc.stats), "queued_rows": queued,
+            "order": list(sols),
             "answers": [dict(x=sols[i].x, delta_tilde=sols[i].delta_tilde,
                              m_final=sols[i].m_final, iters=sols[i].iters,
                              status=sols[i].status, shape_class=tuple(sols[i].shape_class))
@@ -205,19 +282,22 @@ def _imports(mesh, dev, a):
 
 
 TASKS = {"pass": _pass, "weighted_gram": _weighted_gram, "block_sketch": _block_sketch,
-         "engine": _engine, "robust": _robust, "service": _service,
-         "meshes": _meshes, "imports": _imports}
+         "engine": _engine, "robust": _robust, "segmented": _segmented, "newton": _newton,
+         "service": _service, "meshes": _meshes, "imports": _imports}
 
 
 def run_tasks(mesh, payload: dict) -> dict:
     """Every task of the payload, in order, on this rank (module docstring)."""
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import rank_device
 
     dev = rank_device(mesh)
     if dev.type == "cuda":
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"rank": D.data_index(mesh)}
+    out = {"rank": D.data_index(mesh), "launches": {}}
     for name, kind, args in payload["tasks"]:
+        before = dict(ops.BODY_LAUNCHES)
         out[name] = _cpu(TASKS[kind](mesh, dev, args))
+        out["launches"][name] = {k: v - before[k] for k, v in ops.BODY_LAUNCHES.items()}
     return out

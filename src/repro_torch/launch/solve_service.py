@@ -45,13 +45,13 @@ import torch
 from repro_torch.core import PreemptedError
 from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
 from repro_torch.core.quadratic import direct_solve, from_least_squares
+from repro_torch.launch.mesh import EXIT_PREEMPTED  # 75, EX_TEMPFAIL: restart with --resume
 from repro_torch.serve.solver_service import PathSolution, SolverService
 
 # relative 2-norm error of an audited answer against the direct solve: the
 # requests' ν ∈ [0.05, 0.5] keeps κ(H) below about 1e3, so fp32 PCG lands
 # within 1e-5 of it; an answer off by 1e-3 is wrong, not rounded
 AUDIT_REL_TOL = 1e-3
-EXIT_PREEMPTED = 75          # EX_TEMPFAIL: restart me with --resume
 CERTIFICATE_LINES = 8
 
 
@@ -103,26 +103,39 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def preemptible_service(args, mesh=None, device=None) -> SolverService:
+    """The demo's service from its flags, with a SIGTERM ``PreemptionHandler``
+    when ``--checkpoint-dir`` is set; under ``mesh`` the sharded service
+    (``launch.serve --mesh K --preempt-after S`` runs one a rank)."""
     preempt = None
     if args.checkpoint_dir:
-        if not args.resume:
-            shutil.rmtree(args.checkpoint_dir, ignore_errors=True)
         from repro_torch.ft import PreemptionHandler
 
         preempt = PreemptionHandler(signals=(signal.SIGTERM,)).__enter__()
+    return SolverService(batch_size=16, method="pcg", sketch=args.sketch,
+                         compute_dtype=args.dtype, tol=args.tol, max_iters=args.max_iters,
+                         seed=args.seed, max_retries=args.max_retries,
+                         fallback=not args.no_fallback, segment_trips=args.segment_trips,
+                         checkpoint_dir=args.checkpoint_dir or None, preempt=preempt,
+                         ladder_cache=bool(args.path), mesh=mesh,
+                         device=args.device if device is None else device)
 
-    svc = SolverService(batch_size=16, method="pcg", sketch=args.sketch,
-                        compute_dtype=args.dtype, tol=args.tol, max_iters=args.max_iters,
-                        seed=args.seed, max_retries=args.max_retries,
-                        fallback=not args.no_fallback, segment_trips=args.segment_trips,
-                        checkpoint_dir=args.checkpoint_dir or None, preempt=preempt,
-                        ladder_cache=bool(args.path), device=args.device)
-    dev = svc.device
+
+def submit_requests(svc: SolverService, args):
+    """Submit the ``--requests`` ridge requests drawn from ``--seed``;
+    returns ({request id: (A, y, ν)}, the generator, for further draws)."""
     rng = np.random.default_rng(args.seed)
-    requests = {svc.submit(A, y, nu): (A, y, nu)
-                for A, y, nu in _requests(rng, args.requests, dev)}
+    return {svc.submit(A, y, nu): (A, y, nu)
+            for A, y, nu in _requests(rng, args.requests, svc.device)}, rng
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.checkpoint_dir and not args.resume:
+        shutil.rmtree(args.checkpoint_dir, ignore_errors=True)
+    svc = preemptible_service(args)
+    dev = svc.device
+    requests, rng = submit_requests(svc, args)
     nus = np.geomspace(1.0, 1e-2, 8)          # strong → weak: warm downhill
     paths = {svc.submit_path(A, y, nus): (A, y)
              for A, y, _ in _requests(rng, args.path, dev)}

@@ -71,10 +71,17 @@ replicated, and only its inner systems are cut to the rank's rows. Every
 solve then runs with ``mesh=``: one all-reduce each for the ladder Grams
 and the true Gram, and every rank returns the same answers. The default
 classes add the pod-scale tail (65536, 256, 512, srht); every class's n
-must divide by the data-shard count. A flush with a deadline is
-refused in this mode (expiring or dispatching a chunk would be a decision
-on each rank's own clock), and so is a chunk with a checkpoint directory or
-a preemption flag (the segmented driver's rule under a mesh).
+must divide by the data-shard count. Deadlines, checkpoints and preemption
+work as on one device, decided by the lead rank (``core.distributed``):
+ranks stamp their submissions at different instants, so each flush
+broadcasts the lead rank's remaining time per request, from which every
+rank builds the same chunks, EDF order and budgets; one ``host_verdict``
+before each dispatch says whether the chunk has expired on the lead rank's
+clock. A ridge chunk's deadline, checkpoint and preemption flag then go
+through the segmented driver's verdicts (any rank's SIGTERM stops every
+rank at the same segment), and the lead rank alone writes the chunk's
+checkpoint into the shared ``checkpoint_dir``; every rank resumes the lead
+rank's latest step, or every rank raises.
 """
 
 from __future__ import annotations
@@ -598,40 +605,43 @@ class SolverService:
         Newton steps; a path chunk's only before dispatch."""
         if deadline_s is None:
             deadline_s = self.flush_deadline_s
-        if self.mesh is not None and (deadline_s is not None or any(
-                r.deadline is not None for store in (self._queues, self._glm_queues,
-                                                     self._path_queues)
-                for queue in store.values() for r in queue)):
-            raise ValueError("a sharded service takes no deadlines: each rank would "
-                             "decide on its own clock")
         t0 = time.perf_counter()
         out: dict = dict(self._quarantined)
         self._quarantined = {}
-        # (urgency, seq, cls, kind, chunk): kind None for ridge, the family
-        # name for GLM, ("path", P) for path
-        chunks = []
         sources = ([(cls, None, self._queues, cls) for cls in self.shape_classes]
                    + [(cls, fam, self._glm_queues, (cls, fam))
                       for cls, fam in list(self._glm_queues)]
                    + [(cls, ("path", P), self._path_queues, (cls, P))
                       for cls, P in list(self._path_queues)])
+        queues = []
         for cls, kind, store, key in sources:
-            queue, store[key] = store[key], []
-            queue.sort(key=lambda r: (r.deadline is None, r.deadline or 0.0))
+            queues.append((cls, kind, store[key]))
+            store[key] = []
+        rel = self._relative_deadlines([r for _, _, q in queues for r in q], t0)
+        # (urgency, seq, cls, kind, chunk): kind None for ridge, the family
+        # name for GLM, ("path", P) for path; urgency in seconds from t0
+        chunks = []
+        for cls, kind, queue in queues:
+            queue.sort(key=lambda r: (r.req_id not in rel, rel.get(r.req_id, 0.0)))
             for i in range(0, len(queue), self.batch_size):
                 chunk = queue[i: i + self.batch_size]
-                dl = [r.deadline for r in chunk if r.deadline is not None]
+                dl = [rel[r.req_id] for r in chunk if r.req_id in rel]
                 chunks.append((min(dl) if dl else None, len(chunks), cls, kind, chunk))
         chunks.sort(key=lambda c: (c[0] is None, c[0] or 0.0, c[1]))
         for chunk_deadline, _, cls, kind, chunk in chunks:
-            now = time.perf_counter()
+            spent = time.perf_counter() - t0
             budgets = []
             if deadline_s is not None:
-                budgets.append(deadline_s - (now - t0))
+                budgets.append(deadline_s - spent)
             if chunk_deadline is not None:
-                budgets.append(chunk_deadline - now)
+                budgets.append(chunk_deadline - spent)
             budget = min(budgets) if budgets else None
-            if budget is not None and budget <= 0:
+            expired = budget is not None and budget <= 0
+            if budget is not None and self.mesh is not None:
+                from repro_torch.core.distributed import host_verdict
+
+                _, expired = host_verdict(self.mesh, stop=False, expired=expired)
+            if expired:
                 out.update(self._expire_chunk(cls, chunk, family=kind))
             elif kind is None:
                 out.update(self._solve_chunk(cls, chunk, budget_s=budget))
@@ -640,6 +650,20 @@ class SolverService:
             else:
                 out.update(self._solve_glm_chunk(cls, kind, chunk, budget_s=budget))
         return out
+
+    def _relative_deadlines(self, reqs, t0: float) -> dict[int, float]:
+        """{req_id: seconds from the flush's start t0 to the request's
+        deadline} for the queued requests that carry one. Sharded, these are
+        the lead rank's (``lead_values``, one broadcast a flush): ranks stamp
+        their submissions at different instants, and the chunks, their EDF
+        order and their budgets must be the same on every rank."""
+        timed = [r for r in reqs if r.deadline is not None]
+        left = [r.deadline - t0 for r in timed]
+        if self.mesh is not None and timed:
+            from repro_torch.core.distributed import lead_values
+
+            left = lead_values(self.mesh, left)
+        return {r.req_id: v for r, v in zip(timed, left)}
 
     def _chunk_checkpoint(self, cls: ShapeClass, reqs):
         """A ridge chunk's CheckpointManager under ``checkpoint_dir``, named

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.analysis.audit import fixtures, runner  # noqa: E402
 from repro_torch.analysis.audit.ast_rules import lint_module_source, lint_tree  # noqa: E402
-from repro_torch.analysis.audit.entrypoints import build_targets  # noqa: E402
+from repro_torch.analysis.audit.entrypoints import build_targets, port_targets  # noqa: E402
 from repro_torch.analysis.audit.rules import check_fp32_identity  # noqa: E402
 
 KINDS = ("provider", "engine", "segment", "path", "sharded", "newton", "service")
@@ -39,7 +39,7 @@ def test_quick_audit_passes_on_cpu(quick):
     assert rc == 0 and report["passed"] and not bad, bad
     assert report["summary"]["device"] == "cpu"
     assert len({r["entry_point"] for r in report["results"]
-                if r["rule"] == "collective_inventory"}) == 22
+                if r["rule"] == "collective_inventory"}) == 22 + len(port_targets())
 
 
 @pytest.mark.parametrize("rule", RULES)
@@ -66,6 +66,47 @@ def test_loop_allreduce_fires_only_inside_the_trip(quick):
     documented ones, so only the in-trip clause can fire."""
     _, report = quick
     (got,) = [f for f in report["fixtures"] if f["fixture"] == "fixture:loop_allreduce"]
+    assert got["violations"] and all("inside a loop trip" in v["message"]
+                                     for v in got["violations"]), got
+
+
+@pytest.mark.parametrize("name", [ep.name for ep in port_targets()])
+@pytest.mark.parametrize("rule", RULES)
+def test_mesh_ft_entry_points_pass(quick, name, rule):
+    """The sharded segmented driver under a deadline, and with a checkpoint
+    and a preemption flag: every rule passes, and the collective inventory
+    holds exactly its precompute's all-reduces, with a checkpoint the lead
+    rank's (1,) latest step, and one (2,) verdict a segment boundary, as
+    declared."""
+    _, report = quick
+    (got,) = [r for r in report["results"] if r["rule"] == rule and r["entry_point"] == name]
+    assert got["passed"], got
+    (ep,) = [ep for ep in port_targets() if ep.name == name]
+    want = [(2,), (2,)] if ":deadline:" in name else [(1,), (2,), (2,)]
+    assert ep.meta["psum_shapes"][2:] == want and ep.meta["psum_budget"] == 2 + len(want)
+
+
+def test_existing_sharded_budgets_are_unchanged():
+    """The reference's sharded entry points keep their budgets and payloads:
+    the verdicts add collectives only where a deadline or a flag is set."""
+    budgets = {ep.name: (ep.meta["psum_budget"], ep.meta["psum_shapes"])
+               for ep in build_targets() if ep.kind == "sharded"}
+    L, B, D = 8, 3, 16
+    assert budgets == {
+        "sharded:gaussian:fp32": (1, [(L, B, D, D)]),
+        "sharded:gaussian_dense:fp32": (1, [(L, B, D, D)]),
+        "sharded:sjlt:fp32": (1, [(L, B, D, D)]),
+        "sharded:srht:fp32": (1, [(L, B, D, D)]),
+        "path:sharded:gaussian:fp32": (2, [(L, B, D, D), (B, D, D)]),
+        "sharded:weighted_gram": (1, [(B, D, D)]),
+    }
+
+
+def test_verdict_in_trip_fires_only_inside_the_trip(quick):
+    """The verdict control's budget equals its count and its payloads are
+    the verdict's, so only the in-trip clause can fire."""
+    _, report = quick
+    (got,) = [f for f in report["fixtures"] if f["fixture"] == "fixture:verdict_in_trip"]
     assert got["violations"] and all("inside a loop trip" in v["message"]
                                      for v in got["violations"]), got
 

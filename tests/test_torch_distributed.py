@@ -301,49 +301,78 @@ def test_sharded_service_glm_and_paths(service_run):
 
 
 class _FakeMesh:
-    """A mesh's names, shape and rank 0's place on it, enough for the checks
-    made before any collective."""
+    """A mesh's names, shape and this rank's place on it, enough for a
+    driver whose collectives the tests replace (``_one_rank_collectives``)."""
 
     mesh_dim_names = ("data",)
     shape = (4,)
+    device_type = "cpu"
+
+    def __init__(self, rank: int = 0):
+        self.rank = rank
 
     def get_local_rank(self, dim):
-        return 0
+        return self.rank
 
 
-def test_sharded_service_refusals():
+def _one_rank_collectives(monkeypatch, *, stop=False, expired=False):
+    """Replace the collectives with a one-rank stand-in whose host verdict
+    is (stop, expired) whatever this rank reads; returns the verdict calls."""
+    calls = []
+
+    def verdict(mesh, *, stop=stop, expired=expired, _want=(stop, expired)):
+        calls.append((stop, expired))
+        return _want
+
+    monkeypatch.setattr(D, "all_reduce_sum", lambda t, mesh: t)
+    monkeypatch.setattr(D, "barrier", lambda mesh: None)
+    monkeypatch.setattr(D, "lead_values", lambda mesh, v: list(v) if isinstance(
+        v, (list, tuple)) else [v])
+    monkeypatch.setattr(D, "host_verdict", verdict)
+    return calls
+
+
+def test_sharded_service_refusals(monkeypatch):
+    """A class whose n the shard count does not divide is refused; a
+    flush's deadline is the lead rank's verdict, taken once per chunk."""
     with pytest.raises(ValueError, match="not divisible"):
         SolverService(mesh=_FakeMesh(), device="cpu",
                       shape_classes=(ShapeClass(n=102, d=8, m_max=16),))
-    svc = SolverService(mesh=_FakeMesh(), device="cpu", flush_deadline_s=1.0, **SVC)
-    with pytest.raises(ValueError, match="no deadlines"):
-        svc.flush()
-    svc = SolverService(mesh=_FakeMesh(), device="cpu", **SVC)
-    svc.submit(torch.randn(50, 4), torch.randn(50), 0.1, deadline_s=5.0)
-    with pytest.raises(ValueError, match="no deadlines"):
-        svc.flush()
+    calls = _one_rank_collectives(monkeypatch, expired=True)
+    svc = SolverService(mesh=_FakeMesh(rank=1), device="cpu", flush_deadline_s=3600.0, **SVC)
+    rid = svc.submit(torch.randn(50, 4), torch.randn(50), 0.1, deadline_s=3600.0)
+    assert svc.flush()[rid].status == "DEADLINE_EXCEEDED"
+    assert calls == [(False, False)]      # this rank's clock said no; the lead's said yes
     default = SolverService(mesh=_FakeMesh(), device="cpu")
     assert default.bucket_for(60000, 200).n == 65536
     with pytest.raises(ValueError, match="no shape class fits"):
         SolverService(device="cpu").bucket_for(60000, 200)
 
 
-def test_sharded_drivers_refuse_per_rank_host_decisions(tmp_path):
-    """A deadline, a preemption flag or a checkpoint would be read or written
-    by each rank on its own: refused under a mesh, before any collective."""
+def test_sharded_drivers_refuse_per_rank_host_decisions(tmp_path, monkeypatch):
+    """No rank decides on its own clock or flag: a deadline and a preemption
+    flag follow the host verdict, and a rank other than the lead writes no
+    checkpoint."""
     from repro_torch.core.newton import adaptive_newton_solve_batched
+    from repro_torch.core.robust import PreemptedError
 
     q = _problem(1)
-    for kw in (dict(checkpoint=tmp_path), dict(deadline_s=1.0), dict(preempt=object())):
-        with pytest.raises(ValueError, match="no deadline, checkpoint or preemption"):
-            segmented_padded_solve_batched(q, SEEDS, m_max=8, mesh=_FakeMesh(),
-                                           device="cpu", **kw)
-    with pytest.raises(ValueError, match="no deadline"):
-        robust_padded_solve_batched(q, SEEDS, m_max=8, deadline_s=1.0, mesh=_FakeMesh(),
-                                    device="cpu")
-    with pytest.raises(ValueError, match="no deadline"):
-        adaptive_newton_solve_batched("logistic", q.A, torch.zeros(B, N), 0.1, m_max=8,
-                                      deadline_s=1.0, mesh=_FakeMesh(), device="cpu")
+    kw = dict(m_max=8, segment_trips=1, mesh=_FakeMesh(rank=1), device="cpu")
+    calls = _one_rank_collectives(monkeypatch, expired=True)
+    _, st = segmented_padded_solve_batched(q, SEEDS, deadline_s=3600.0, **kw)
+    assert st["deadline_hit"] and st["segments"] == 1 and calls == [(False, False)] * 2
+    _, st = robust_padded_solve_batched(q, SEEDS, m_max=8, deadline_s=3600.0,
+                                        segment_trips=1, mesh=_FakeMesh(rank=1),
+                                        device="cpu")
+    assert st["deadline_hit"] and st["segments"] == 1
+    _, st = adaptive_newton_solve_batched("logistic", q.A, torch.zeros(B, N), 0.1, m_max=8,
+                                          deadline_s=3600.0, mesh=_FakeMesh(rank=1),
+                                          device="cpu")
+    assert st["newton_iters"].tolist() == [1] * B
+    _one_rank_collectives(monkeypatch, stop=True)
+    with pytest.raises(PreemptedError):
+        segmented_padded_solve_batched(q, SEEDS, checkpoint=tmp_path, preempt=object(), **kw)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_quadratic_shardings():

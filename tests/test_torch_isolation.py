@@ -110,8 +110,10 @@ def test_paper_literal_and_sharded_entry_points_default_to_cuda():
 def test_spawned_ranks_import_no_jax():
     """A rank of ``launch.mesh.run_ranks`` imports its job's module and the
     port only, even when the launching process has JAX loaded."""
+    from repro_torch.kernels.ops import BODY_LAUNCHES
     from repro_torch.launch.mesh import run_ranks
 
     out = run_ranks("repro_torch.launch.sharded:run_tasks", 1,
                     {"tasks": [("imports", "imports", {})]}, device="cpu", timeout=300)
-    assert out == [{"rank": 0, "imports": []}]
+    assert out == [{"rank": 0, "imports": [],
+                    "launches": {"imports": dict.fromkeys(BODY_LAUNCHES, 0)}}]

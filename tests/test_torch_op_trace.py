@@ -157,3 +157,98 @@ def test_collective_payload_bytes():
 def test_peak_bytes_above_entry_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA device"):
         memscan.peak_bytes_above_entry(lambda: torch.zeros(3), "cpu")
+
+
+@pytest.mark.parametrize("m,n", [(16, 300), (64, 4096), (5, 129), (7, 1)])
+def test_dense_s_is_bitwise_the_one_call_s(m, n):
+    """``gaussian_s_dense`` fills S in column blocks: the entries are
+    counter hashes, so S is bitwise one ``gaussian_tile`` call's."""
+    seeds = torch.tensor([3, 2 ** 31 + 7, 4000000000], dtype=torch.int64)
+    assert torch.equal(tg.gaussian_s_dense(seeds, m, n), tg.gaussian_tile(seeds, 0, 0, (m, n)))
+
+
+def test_live_bytes_count_what_is_alive_at_once():
+    x = torch.zeros(1000)              # made before the trace: not counted
+
+    def fn():
+        a = x + 1.0                    # 4000 B
+        b = a * 2.0                    # 8000 B alive
+        del a
+        c = b + 3.0                    # a freed: 8000 B again
+        return c.sum()
+
+    trace = ot.record(fn)
+    assert trace.peak_live_bytes == 8000 + 4
+
+
+@pytest.mark.parametrize("alias", ["slice", "detach", "transpose"])
+def test_live_bytes_follow_the_storage_through_a_view(alias):
+    """A temporary whose only survivor is a view stays counted until the
+    view dies: the storage, not the first tensor that held it, is freed (a
+    detached alias keeps no reference to that tensor)."""
+    x = torch.zeros(1000)              # made before the trace: not counted
+    take = {"slice": lambda a: a[:10], "detach": lambda a: a.detach()[:10],
+            "transpose": lambda a: a.view(10, 100).T[0]}[alias]
+
+    def fn():
+        a = x + 1.0                    # 4000 B
+        v = take(a)                    # an alias of 10 elements: the same storage
+        del a
+        b = v * 2.0                    # 40 B; a's storage still alive through v
+        del v
+        c = b + 1.0                    # now freed: 40 + 40 B
+        return c
+
+    trace = ot.record(fn)
+    assert trace.peak_live_bytes == 4000 + 40
+
+
+DENSE_CASE = (2, 4096, 32, 64)          # (B, n, d, m_max): the top class's n and d/m
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_dense_pass_live_set_within_a_quarter_of_s_and_sa(weighted, compute_dtype):
+    """The ``gaussian_dense`` pass holds at most 1.25 × (dense S + SA) bytes
+    of its own tensors at once, plus in bf16 and int8 one A-sized fp32 copy
+    (4·B·n·d; the gates ``chip_smoke.py`` phase 9 holds it to on the card);
+    building S in one call held over twice S, and rounding A whole held an
+    A-sized bf16 copy beside the fp32 one."""
+    Bc, n, d, m = DENSE_CASE
+    q, seeds = problem("cpu", b=Bc, n=n, d=d)
+    w = torch.rand((Bc, n), generator=torch.Generator().manual_seed(2)) + 0.5
+    prov = get_provider("gaussian_dense")
+    S, SA = 4 * Bc * m * n, 4 * Bc * m * d
+    gate = 1.25 * (S + SA) + (0 if compute_dtype == "fp32" else 4 * Bc * n * d)
+    trace = ot.record(lambda: prov.level_grams(prov.sample(seeds, m, n), q,
+                                               doubling_ladder(m),
+                                               row_weights=w if weighted else None,
+                                               compute_dtype=compute_dtype),
+                      watch=[q.A])
+    assert trace.peak_live_bytes <= gate, trace.peak_live_bytes / gate
+    one_call = ot.record(lambda: tg.gaussian_tile(seeds, 0, 0, (m, n)))
+    assert one_call.peak_live_bytes > 2 * S
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_dense_pass_in_place_is_bitwise_the_out_of_place_pass(compute_dtype, weighted):
+    """Scaling and rounding S in place, a block at a time, gives the bits of
+    the whole-S formula the dense pass used before."""
+    from repro_torch.kernels.precision import contract_dtype, round_to
+
+    Bc, n, d, m = 2, 700, 6, 16
+    q, seeds = problem("cpu", b=Bc, n=n, d=d)
+    w = torch.rand((Bc, n), generator=torch.Generator().manual_seed(4)) + 0.5
+    prov = get_provider("gaussian_dense")
+    ladder = doubling_ladder(m)
+    got = prov.level_grams(prov.sample(seeds, m, n), q, ladder,
+                           row_weights=w if weighted else None, compute_dtype=compute_dtype)
+    A, scale = tg.resolve_stream(q.A, Bc, w if weighted else None, compute_dtype)
+    S = tg.gaussian_tile(seeds, 0, 0, (m, n))
+    if scale is not None:
+        S = S * scale[:, None, :]
+    ct = contract_dtype(compute_dtype)
+    want = prefix_level_grams(torch.matmul(round_to(S, ct), round_to(A, ct)), ladder,
+                              inv_m_scale=True)
+    assert torch.equal(got, want)
