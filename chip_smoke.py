@@ -147,7 +147,30 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    ``pre.pinvs``), the rebuild sentinel on a second flush of each class
    (nothing compiled or opened), and ``torch.cuda.memory_reserved()``'s
    growth over that second flush (printed, no gate);
-10. summary: one ``{"kernels": [...]}`` line, then the device line last.
+10. LM serving and the ridge probe (``models``, ``serve.step``,
+   ``launch.ridge_probe``): (a) at qwen2-0.5b's full width, seeded
+   parameters, ``greedy_generate`` of B = 4 prompts of 32 tokens, 16 new, in
+   fp32 and bf16: prefill ms, the median ms of a decode step, tokens/s, peak
+   device memory of a warm call, the device's busy share of an 8-step
+   decode window and the device activities it ran (``torch.profiler``;
+   a window with no device time fails), the torch ops a step dispatches,
+   and its device time against the bytes bound; the bf16 prefill logits
+   against the fp32 ones, and one bf16 decode step scanned op by op
+   (matmuls bf16, softmax and norm means fp32, the cache bf16); (b) fp32
+   step-by-step decode of a
+   12-token prompt against the uncached forward (rtol = atol = 2e-3, the
+   reference's bound), and the cached greedy ids against an uncached
+   argmax wherever the top-2 margin exceeds 1e-3; (c) one fp32 forward of a
+   (2, 16) prompt on the card and on the CPU with the same parameters,
+   within 1e-4 of the logits' scale; (d) the ten configs reduced, and
+   recurrentgemma with a remainder layer: a forward, decode against
+   prefill, gemma2's ring at prompts 40 and 20 around its window of 32;
+   (e) the ridge probe at full width: features (8192, 896), the adaptive
+   PCG/SJLT fit against an fp64 direct solve under phase 8's energy-norm
+   gate, held-out MSE under 0.05 × mean(y²), the B = 1 SJLT (Pallas row 5)
+   launched by the solve (counts set to 0 before it) and held against its
+   plain version at the probe's shape;
+11. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -1962,6 +1985,350 @@ def phase_dryrun(smi):
           f"data-sheet arithmetic, beside {smi})")
 
 
+# phase 10: LM serving at qwen2-0.5b's full width (the launcher's default
+# --arch and the probe's backbone): B prompts of LM_PROMPT tokens, LM_NEW
+# new tokens, greedy, seeded parameters
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "qwen2-0.5b", 4, 32, 16
+# decode against the uncached forward at the reference's own bound
+# (tests/test_models.py: rtol = atol = 2e-3); cached greedy ids against an
+# uncached argmax wherever the top-2 margin exceeds LM_MARGIN (below it two
+# summation orders may pick different ids)
+LM_DECODE_TOL, LM_MARGIN = 2e-3, 1e-3
+# the same fp32 forward on the card and on the CPU: matmuls summed in other
+# orders, about 1e-6 of the logits' scale a layer
+LM_CPU_REL_TOL = 1e-4
+# decode steps in the profiled window of (a)
+LM_PROFILED_STEPS = 8
+# bf16 against fp32 logits of the same prompt, rms(Δ) / rms(fp32 logits):
+# bf16 rounding at this width moves them by a few percent; above the upper
+# bound something worse than rounding broke, below the lower one the bf16
+# path ran in fp32 (TF32 is off, so that would be about 1e-6). At random
+# weights one misplaced cast moves the logits no more than rounding does,
+# so (a) also scans one bf16 decode step op by op (_lm_bf16_check)
+LM_BF16_GAP = (1e-3, 5e-2)
+# the probe: features of PROBE_BATCH × PROBE_SEQ tokens (and a quarter as
+# many held-out sequences); the gate of test_system.py::test_ridge_probe_pipeline
+PROBE_BATCH, PROBE_SEQ, PROBE_MSE_SHARE = 256, 32, 0.05
+
+
+def _lm_decode_check(model, cfg, tokens, enc, *, prefill, max_seq, tag):
+    """Phase 10 (b), (d): prefill ``prefill`` tokens, decode the rest one
+    by one; each step's logits against the uncached forward's at the
+    reference's bound. Returns the max |Δ|."""
+    import torch
+
+    from repro_torch.models import init_cache
+    from repro_torch.serve.step import decode_step, prefill_step
+
+    f32, dev = torch.float32, tokens.device
+    B, S = tokens.shape
+    want = model(tokens, enc_feats=enc, compute_dtype=f32)[0][:, prefill - 1:]
+    cache = init_cache(cfg, B, max_seq, dtype=f32, device=dev)
+    lg, cache = prefill_step(model, cfg, tokens[:, :prefill], cache, enc_feats=enc,
+                             compute_dtype=f32, device=dev)
+    outs = [lg]
+    for t in range(prefill, S):
+        lg, cache = decode_step(model, cfg, tokens[:, t:t + 1], cache, t, compute_dtype=f32,
+                                device=dev)
+        outs.append(lg)
+    got = torch.stack(outs, dim=1)[:, :want.shape[1]]
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= LM_DECODE_TOL + LM_DECODE_TOL * want.abs()).all())
+    print(f"[lm] {tag}: decode after a {prefill}-token prefill against the uncached forward "
+          f"over {S} tokens, max |Δ| {err:.3e} (rtol = atol = {LM_DECODE_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {tag}: cached decode disagrees with the forward")
+    return err
+
+
+def _lm_serving(smi, model, cfg, prompts, cd, tag):
+    """Phase 10 (a) in one compute dtype: greedy ids, prefill ms, ms a decode
+    step, tokens/s, peak device memory of a warm call, the device's busy
+    share of a decode window. Returns the greedy ids."""
+    import torch
+
+    from repro_torch.analysis.audit.op_trace import record
+    from repro_torch.launch.breakdown import _device_profile
+    from repro_torch.models import init_cache
+    from repro_torch.serve.step import decode_step, greedy_generate, prefill_step
+
+    dev = prompts.device
+    B, P = prompts.shape
+    max_seq = P + LM_NEW + 1
+
+    def generate():
+        return greedy_generate(model, cfg, prompts, LM_NEW, max_seq=max_seq,
+                               compute_dtype=cd, device=dev)
+    generate()                                       # warm: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids = generate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if ids.shape != (B, LM_NEW) or not bool(((ids >= 0) & (ids < cfg.vocab)).all()):
+        raise SystemExit(f"chip_smoke: {tag}: greedy ids out of shape or range")
+
+    prefill_ms = time_ms(lambda: prefill_step(
+        model, cfg, prompts, init_cache(cfg, B, max_seq, dtype=cd, device=dev),
+        compute_dtype=cd, device=dev), reps=5)
+    logits, cache = prefill_step(model, cfg, prompts, init_cache(cfg, B, max_seq, dtype=cd,
+                                                                  device=dev),
+                                 compute_dtype=cd, device=dev)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    step_ms = time_ms(lambda: decode_step(model, cfg, tok, cache, P, compute_dtype=cd,
+                                          device=dev), reps=10)
+
+    def window():
+        c, t = cache, tok
+        for pos in range(P, P + LM_PROFILED_STEPS):
+            lg, c = decode_step(model, cfg, t, c, pos, compute_dtype=cd, device=dev)
+            t = torch.argmax(lg, dim=-1)[:, None]
+        return t
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    busy, n_device, n_copies = _device_profile(window)
+    if busy is None:
+        raise SystemExit(f"chip_smoke: {tag}: the profiler saw no device time in the decode "
+                         "window")
+    # a decode step's bound: every weight read once, 2 FLOPs a weight a row
+    n_w = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bound, bound_by = bound_ms(2 * B * n_w, w_bytes)
+    dev_step_ms = busy * 1e3 / LM_PROFILED_STEPS
+    sites = record(lambda: decode_step(model, cfg, tok, cache, P, compute_dtype=cd,
+                                       device=dev), device=dev).sites
+    print(f"[lm] {tag}: B={B}, prompt {P}, {LM_NEW} new tokens: prefill {prefill_ms:.3f} ms, "
+          f"decode step {step_ms:.3f} ms (median of 10), {B * LM_NEW / wall:.1f} tok/s "
+          f"({wall * 1e3:.1f} ms for the greedy call), peak device memory "
+          f"{peak:,} B ({peak - base:,} B above the {base:,} B held before), a "
+          f"{LM_PROFILED_STEPS}-step decode window {window_s * 1e3:.2f} ms wall, device "
+          f"{busy / window_s:.3f} busy, {1 - busy / window_s:.3f} idle ({smi})")
+    print(f"[lm] {tag}: the profiled window ran {n_device} device activities "
+          f"({n_copies} memcpy/memset), {n_device / LM_PROFILED_STEPS:.1f} a decode step, "
+          f"which dispatches {len(sites)} torch ops ({sum(any(x.new) for x in sites)} of "
+          f"them allocate); "
+          f"device time {dev_step_ms:.3f} ms a step, {dev_step_ms / step_bound:.1f}x the "
+          f"step's {step_bound:.3f} ms bound ({bound_by}: {w_bytes:,} B of weights read "
+          f"once) ({smi})")
+    return ids
+
+
+def _lm_bf16_check(smi, model, cfg, prompts):
+    """Phase 10 (a) in bf16: the bf16 prefill logits against the fp32 ones
+    of the same prompt within LM_BF16_GAP, and one bf16 decode step scanned
+    op by op on the card: every matmul on bf16 operands (qwen2's reference
+    contracts only in bf16; tests/test_torch_models.py holds every config's
+    set to the reference's), every softmax and norm mean on fp32, and the
+    cache it returns in bf16."""
+    import math
+
+    import torch
+
+    from repro_torch.analysis.audit.op_trace import CONTRACTION_OPS, record
+    from repro_torch.models import init_cache
+    from repro_torch.serve.step import decode_step, prefill_step
+
+    dev, bf16 = prompts.device, torch.bfloat16
+    B, P = prompts.shape
+    logits = {}
+    for cd in (torch.float32, bf16):
+        logits[cd], cache = prefill_step(model, cfg, prompts, init_cache(
+            cfg, B, P + 2, dtype=cd, device=dev), compute_dtype=cd, device=dev)
+    f32, b16 = logits[torch.float32], logits[bf16]
+    gap = float(torch.sqrt(((b16 - f32) ** 2).mean() / (f32 ** 2).mean()))
+    top1 = float((b16.argmax(-1) == f32.argmax(-1)).float().mean())
+    tok = torch.argmax(b16, dim=-1)[:, None]
+    trace = record(lambda: decode_step(model, cfg, tok, cache, P, compute_dtype=bf16,
+                                       device=dev), device=dev)
+    _, new_cache = trace.result
+    seen = {}
+    for site in trace.sites:
+        kind = ("matmul" if site.base in CONTRACTION_OPS else
+                site.base if site.base in ("aten._softmax", "aten.mean") else None)
+        if kind:
+            seen.setdefault(kind, set()).update(str(d).split(".")[-1] for d in site.in_dtypes)
+    leaves = {str(t.dtype).split(".")[-1] for part in new_cache.values() for layers in
+              part.values() for c in (layers if isinstance(layers, list) else [layers])
+              for t in c.values()}
+    want = {"matmul": {"bfloat16"}, "aten._softmax": {"float32"}, "aten.mean": {"float32"}}
+    ok_gap = LM_BF16_GAP[0] <= gap <= LM_BF16_GAP[1]
+    ok_ops = seen == want and leaves == {"bfloat16"}
+    print(f"[lm] {cfg.name} bf16 against fp32 prefill logits ({B}, {P}): rms |Δ| / rms "
+          f"{gap:.3e} (within {LM_BF16_GAP}: {ok_gap}), max |Δ| "
+          f"{float((b16 - f32).abs().max()):.3e} at max |logits| {float(f32.abs().max()):.3e}, "
+          f"top-1 equal in {top1:.4f}; one bf16 decode step, {len(trace.sites)} ops: input "
+          f"dtypes {dict(sorted((k, sorted(v)) for k, v in seen.items()))}, cache "
+          f"{sorted(leaves)} ({'ok' if ok_ops else 'FAIL'}) ({smi})")
+    if not (ok_gap and ok_ops and math.isfinite(gap)):
+        raise SystemExit("chip_smoke: the bf16 path is not the reference's bf16")
+
+
+def phase_lm(smi):
+    """Phase 10: LM serving and the ridge probe on the card. (a) greedy
+    decode at qwen2-0.5b's full width in fp32 and bf16 with its times,
+    peak memory and busy share; (b) the fp32 cache against the uncached
+    forward, and the cached greedy ids against an uncached argmax; (c) one
+    fp32 forward on the card against the same parameters on the CPU; (d)
+    the other families reduced (and recurrentgemma with a remainder layer):
+    a forward, decode against prefill, gemma2's ring at prompts 40 and 20
+    around its window of 32; (e) the ridge probe's fit on the full-width
+    features. Returns (the probe's launches per Pallas body, the SJLT
+    measurement at the probe's shape)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.sketches import make_sketch
+    from repro_torch.device import check_fp32_matmul
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sjlt as ksj
+    from repro_torch.launch.ridge_probe import NU, run_probe
+    from repro_torch.models import Transformer, init_params
+
+    dev = torch.device("cuda")
+    check_fp32_matmul()
+    cfg = get_config(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=g, device=dev, max_seq=LM_PROMPT + LM_NEW + 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {cfg.name}: {n_params:,} parameters (param_count {cfg.param_count():,}), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, seeded on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g, device=dev)
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"[time] phase 10 {part}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    # (a) greedy serving in fp32 and bf16
+    ids = _lm_serving(smi, model, cfg, prompts, torch.float32, f"{cfg.name} fp32")
+    _lm_serving(smi, model, cfg, prompts, torch.bfloat16, f"{cfg.name} bf16")
+    _lm_bf16_check(smi, model, cfg, prompts)
+    lap("(a)")
+
+    # (b) the cache at full width, fp32: decode against the uncached forward;
+    # the greedy ids against an uncached argmax over the same history
+    _lm_decode_check(model, cfg, prompts[:, :12], None, prefill=1, max_seq=12,
+                     tag=f"{cfg.name} fp32, a 12-token prompt")
+    seq = torch.cat([prompts, ids[:, :-1]], dim=1)
+    logits = model(seq, compute_dtype=torch.float32)[0][:, LM_PROMPT - 1:]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LM_MARGIN
+    same = torch.argmax(logits, dim=-1) == ids
+    print(f"[lm] {cfg.name} fp32 greedy ids against an uncached argmax: {int(same.sum())} of "
+          f"{same.numel()} equal; {int(clear.sum())} with a top-2 margin above {LM_MARGIN:g}, "
+          f"all of those equal: {bool(same[clear].all())}")
+    if not bool(same[clear].all()):
+        raise SystemExit("chip_smoke: cached greedy ids differ from the uncached argmax")
+    lap("(b)")
+
+    # (c) the card against the CPU, one fp32 forward of a (2, 16) prompt
+    cpu = Transformer(cfg, max_seq=LM_PROMPT + LM_NEW + 1, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    x = prompts[:2, :16]
+    on_card = model(x, compute_dtype=torch.float32)[0].cpu()
+    t0 = time.perf_counter()
+    on_cpu = cpu(x.cpu(), compute_dtype=torch.float32)[0]
+    rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    print(f"[lm] {cfg.name} fp32 forward (2, 16), card against CPU: max |Δ| / max |logits| "
+          f"{rel:.3e} (tolerance {LM_CPU_REL_TOL:g}; the CPU took "
+          f"{time.perf_counter() - t0:.2f} s)")
+    if not rel <= LM_CPU_REL_TOL:
+        raise SystemExit("chip_smoke: the card's forward disagrees with the CPU's")
+    del cpu, on_card, on_cpu
+    lap("(c)")
+
+    # (d) every family reduced; the MoE families at a capacity that never
+    # binds (a 12-token group drops tokens a 1-token decode group keeps, in
+    # the reference too); recurrentgemma at 7 layers runs a remainder layer
+    worst = 0.0
+    for arch, n_layers in [(a, None) for a in ARCHS] + [("recurrentgemma-9b", 7)]:
+        rcfg = get_config(arch).reduced()
+        if n_layers:
+            rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
+        if rcfg.n_experts:
+            rcfg = dataclasses.replace(rcfg, capacity_factor=rcfg.n_experts / rcfg.top_k + 0.01)
+        rg = torch.Generator(device=dev).manual_seed(1)
+        rmodel = init_params(rcfg, generator=rg, device=dev, max_seq=64)
+        toks = torch.randint(0, rcfg.vocab, (2, 48), generator=rg, device=dev)
+        enc = (torch.randn((2, rcfg.enc_seq, rcfg.d_model), generator=rg, device=dev)
+               if rcfg.n_enc_layers else None)
+        lg = rmodel(toks[:, :16], enc_feats=enc, compute_dtype=torch.float32)[0]
+        if lg.shape != (2, 16, rcfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise SystemExit(f"chip_smoke: {rcfg.name}: forward not finite or misshaped")
+        tag = f"{rcfg.name} ({rcfg.n_layers} layers, {rcfg.n_rem} remainder)"
+        worst = max(worst, _lm_decode_check(rmodel, rcfg, toks[:, :12], enc, prefill=1,
+                                            max_seq=12, tag=tag))
+        if arch == "gemma2-27b":
+            for prefill, S in ((40, 48), (20, 36)):       # around the window of 32
+                worst = max(worst, _lm_decode_check(
+                    rmodel, rcfg, toks[:, :S], None, prefill=prefill, max_seq=64,
+                    tag=f"{rcfg.name} ring (window {rcfg.window}), prompt {prefill}"))
+    print(f"[lm] every family reduced: worst decode |Δ| {worst:.3e} ({smi})")
+    lap("(d)")
+
+    # (e) the ridge probe on the full-width features; the solve's kernel
+    # launches counted from 0
+    ops.reset_launches()
+    r = run_probe(model, batch=PROBE_BATCH, seq=PROBE_SEQ, seed=1, device=dev)
+    launches = dict(ops.BODY_LAUNCHES)
+    q, x = r["q"], r["x"]
+    H64 = q.A.double().T @ q.A.double() + NU ** 2 * torch.eye(q.d, dtype=torch.float64,
+                                                               device=dev)
+    x64 = torch.linalg.solve(H64, q.b.double())
+    ev = torch.linalg.eigvalsh(H64)
+    kappa = float(ev[-1] / ev[0])
+    e = x.double() - x64
+    err = float(torch.sqrt(torch.trace(e.T @ H64 @ e) / torch.trace(x64.T @ H64 @ x64)))
+    gate = max(SOLVE_REL_TOL, FP32_UNIT * kappa * max(r["iters"], 1) ** 0.5)
+    print(f"[probe] {cfg.name} features {r['features']} in {r['feature_s'] * 1e3:.2f} ms; "
+          f"adaptive PCG/SJLT {r['solve_s'] * 1e3:.2f} ms, {r['iters']} iterations, m_final "
+          f"{r['m_final']}, {r['n_doublings']} doublings; relative error against the fp32 "
+          f"direct solve {r['rel_err']:.3e}, against the fp64 solve {err:.3e} in the H-norm "
+          f"(gate {gate:.3e}, κ(H) {kappa:.3e}); MSE {r['mse']:.5f}, held-out MSE "
+          f"{r['heldout_mse']:.5f} against {PROBE_MSE_SHARE} × mean(y²) = "
+          f"{PROBE_MSE_SHARE * r['heldout_base']:.5f}; launches {launches} ({smi})")
+    if not (math.isfinite(err) and err <= gate):
+        raise SystemExit(f"chip_smoke: the probe's fit misses the ridge gate: {err:.3e}")
+    if not r["heldout_mse"] < PROBE_MSE_SHARE * r["heldout_base"]:
+        raise SystemExit("chip_smoke: the probe's held-out MSE misses its gate")
+    if launches["_sjlt_kernel"] <= 0:
+        raise SystemExit("chip_smoke: the probe's solve never launched the SJLT kernel")
+
+    # the B = 1 SJLT at the probe's shape: the fitted features and a sketch
+    # of the final size
+    A, M = q.A, r["m_final"]
+    if M >= q.n:
+        raise SystemExit(f"chip_smoke: the probe ended unsketched (m_final {M} ≥ n {q.n})")
+    sk = make_sketch("sjlt", M, q.n, 5, device=dev)
+    tgt, sg = sk.data["rows"][0], sk.data["signs"][0]
+
+    def index_add():
+        return torch.zeros((M, q.d), device=dev).index_add_(0, tgt, A * sg[:, None])
+    rec = _measure(f"sjlt single problem, ridge probe (n={q.n}, d={q.d}, M={M})",
+                   lambda: ops.sjlt_apply(A, tgt, sg, M), lambda: ksj.sjlt_ref(A, tgt, sg, M),
+                   sjlt_terms(1, q.n, q.d, M, shared=True, index_itemsize=8), SJLT_REL_TOL,
+                   library=index_add)
+    del model, r, q, A
+    torch.cuda.empty_cache()
+    lap("(e)")
+    return launches, rec
+
+
 def main() -> int:
     import torch
 
@@ -2020,6 +2387,13 @@ def main() -> int:
     lap("phase 8 (d) (pod-scale dry-run)")
     phase_audit(smi)
     lap("phase 9 (invariant audit, peak device memory)")
+    probe_launches, probe_rec = phase_lm(smi)
+    lap("phase 10 (LM serving and the ridge probe)")
+    for r in paper_rows:
+        if r["name"] == "sjlt (B = 1)":
+            r["launches"] += probe_launches["_sjlt_kernel"]
+            r["variants"].append(probe_rec)
+            print(f"[probe] Pallas row 5 launches: {r['launches']} (phase 8 (a) and the probe)")
     rows += paper_rows
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """The state carried between the JAX reference and the port.
 
-The system has no weights: its state is the problem data and the sketch
-randomness. These helpers turn numpy arrays (what ``np.asarray`` gives for
-the reference's arrays) into the port's tensors on an explicit device, and
-the port's results back into numpy, so the two packages can be run on the
-same inputs.
+The solver has no weights: its state is the problem data and the sketch
+randomness. The LM scaffold's state is a parameter tree and a decode cache.
+These helpers turn numpy arrays (what ``np.asarray`` gives for the
+reference's arrays) into the port's tensors and modules on an explicit
+device, and the port's results back into numpy, so the two packages can be
+run on the same inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .core.quadratic import Quadratic
 from .device import resolve_device
+from .models.transformer import Transformer
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
@@ -65,3 +67,67 @@ def to_numpy(obj):
     if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
         return type(obj)(to_numpy(v) for v in obj)
     return obj
+
+
+def _ref_leaf(tree: dict, key: str):
+    """The reference leaf of a port parameter: ``blocks.p0_attn.3.attn.wq``
+    is ``tree["blocks"]["p0_attn"]["attn"]["wq"][3]`` (the reference stacks
+    a pattern position's layers on a leading axis), ``enc_blocks.3.…`` the
+    same under ``enc_blocks``, anything else the path itself."""
+    parts, idx = key.split("."), None
+    if parts[0] == "blocks":
+        parts, idx = parts[:2] + parts[3:], int(parts[2])
+    elif parts[0] == "enc_blocks":
+        parts, idx = parts[:1] + parts[2:], int(parts[1])
+    node = tree
+    for p in parts:
+        node = node[p]
+    return np.asarray(node if idx is None else node[idx])
+
+
+def model_from_numpy(params_np: dict, cfg, *, device=None) -> Transformer:
+    """The port's ``Transformer`` holding the numbers of the reference's
+    ``init_params`` tree (as numpy arrays): each stacked
+    ``blocks["p{i}_{kind}"]`` leaf is split into position i's layers, the
+    remainder and encoder layers likewise. Every reference number is used
+    exactly once."""
+    max_seq = np.shape(params_np["pos"])[0] if "pos" in params_np else 4096
+    model = Transformer(cfg, max_seq=max_seq, device=device)
+    total = 0
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            leaf = _ref_leaf(params_np, key)
+            if leaf.shape != tuple(p.shape):
+                raise ValueError(f"{key}: reference shape {leaf.shape}, port {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(leaf, dtype=np.float32)))
+            total += p.numel()
+
+    def count(t):
+        return sum(count(v) for v in t.values()) if isinstance(t, dict) else np.size(t)
+    if total != count(params_np):
+        raise ValueError(f"the port's model takes {total} of the reference's "
+                         f"{count(params_np)} numbers")
+    return model
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A port cache in the reference's layout: each position's per-layer
+    dicts stacked on a leading axis."""
+    return {"blocks": {name: {leaf: np.stack([to_numpy(c[leaf]) for c in layers])
+                              for leaf in layers[0]}
+                       for name, layers in cache["blocks"].items()},
+            "rem": {name: {leaf: to_numpy(t) for leaf, t in c.items()}
+                    for name, c in cache["rem"].items()}}
+
+
+def cache_from_numpy(cache_np: dict, *, device=None) -> dict:
+    """The reference's cache tree (numpy) in the port's layout, on
+    ``device`` (default cuda)."""
+    dev = resolve_device(device)
+
+    def tensors(c, j=None):
+        return {leaf: torch.as_tensor(np.array(v if j is None else v[j]), device=dev)
+                for leaf, v in c.items()}
+    return {"blocks": {name: [tensors(c, j) for j in range(len(next(iter(c.values()))))]
+                       for name, c in cache_np["blocks"].items()},
+            "rem": {name: tensors(c) for name, c in cache_np["rem"].items()}}

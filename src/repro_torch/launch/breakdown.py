@@ -99,16 +99,21 @@ def _phases(svc, cls, reqs, segment_trips):
     return times, segments, gaps, int(st.trips), q, seeds
 
 
-def _device_busy_seconds(fn) -> float | None:
-    """Sum of the device times of the kernels ``fn`` ran (torch.profiler),
-    or None where the profiler reports no device time."""
+def _device_profile(fn) -> tuple[float | None, int, int]:
+    """One torch.profiler run of ``fn``: the sum of the device times of the
+    kernels it ran in s (None where the profiler reports no device time),
+    the number of device activities it recorded, and how many of those
+    were memcpys or memsets."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return total * 1e-6 if total > 0 else None
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(name.startswith(("Memcpy", "Memset")) for name in on_device)
+    return (total * 1e-6 if total > 0 else None), len(on_device), copies
 
 
 def main(argv=None):
@@ -162,7 +167,7 @@ def main(argv=None):
                 stats = solve(**seg)
                 walls[name].append(time.perf_counter() - t0)
         mono_s, seg_s = med(walls["mono"]), med(walls["seg"])
-        busy = _device_busy_seconds(solve) if dev.type == "cuda" else None
+        busy = _device_profile(solve)[0] if dev.type == "cuda" else None
         print(json.dumps({
             "class": list(cls[:3]) + [cls.sketch or svc.sketch],
             "compute_dtype": svc.compute_dtype,

@@ -1,6 +1,9 @@
-"""Solver serving launcher: random-shape ridge, GLM and λ-path requests
-through the port's shape-class bucketing and batched adaptive engine.
+"""Serving launcher: LM greedy decode of a seeded model, or random-shape
+ridge, GLM and λ-path requests through the port's shape-class bucketing
+and batched adaptive engine.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2-0.5b] \
+        [--no-reduced] [--batch B] [--prompt-len S] [--new-tokens T] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
         [--glm N] [--path N] [--path-points P] \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
@@ -9,8 +12,15 @@ through the port's shape-class bucketing and batched adaptive engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --preempt-after S \\
         [--requests N] [--device cuda|cpu] [--mesh K [--backend gloo|nccl]]
 
-Mirrors ``repro.launch.serve --ridge``; the data is drawn from a seeded
-``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
+Without ``--ridge`` or ``--preempt-after`` it serves LM traffic, as
+``repro.launch.serve --arch`` does: the config (reduced unless
+``--no-reduced``) gets seeded parameters (``models.init_params``), B random
+prompts (and whisper's frame embeddings) come from a seeded generator, and
+``serve.step.greedy_generate`` decodes them in fp32; it prints tokens/s and
+the first sequence's ids.
+
+The ridge path mirrors ``repro.launch.serve --ridge``; the data is drawn
+from a seeded ``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
 requests (``synthetic_logistic_problem``, ν uniform in [0.1, 0.5]) solved
 by sketched Newton; ``--path N`` adds N ridge requests over a grid of
 ``--path-points`` values of ν (geomspace(1, 1e-2)), each grid solved off one
@@ -45,8 +55,6 @@ verdict), rank 0 alone having written the checkpoints; then ``--resume``
 must give answers bitwise the uninterrupted run's on every rank:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 --preempt-after 0.3
-
-LM serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,9 +73,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
 from repro_torch.core.objectives import synthetic_logistic_problem
+from repro_torch.device import resolve_device
+from repro_torch.models import init_params
 from repro_torch.serve.solver_service import GLMSolution, PathSolution, SolverService
+from repro_torch.serve.step import greedy_generate
 
 
 def _shape(g, dev) -> tuple[int, int]:
@@ -307,10 +319,39 @@ def serve_preempt(args) -> None:
         shutil.rmtree(ck, ignore_errors=True)
 
 
+def serve_lm(args) -> torch.Tensor:
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    max_seq = args.prompt_len + args.new_tokens + 1
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    model = init_params(cfg, generator=g, device=dev, max_seq=max_seq)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=g, device=dev)
+    enc = (torch.randn((args.batch, cfg.enc_seq, cfg.d_model), generator=g, device=dev)
+           if cfg.n_enc_layers else None)
+    t0 = time.perf_counter()
+    out = greedy_generate(model, cfg, prompts, args.new_tokens, max_seq=max_seq,
+                          enc_feats=enc, device=dev)
+    ids = out[0].tolist()                     # waits for the card
+    dt = time.perf_counter() - t0
+    print(f"{cfg.name} on {dev}: {args.batch}×{args.new_tokens} tokens in {dt:.2f}s "
+          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    print("ids:", ids)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="qwen2-0.5b",
+                   help="LM traffic (the default workload): the config to decode with")
+    p.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True,
+                   help="the config's reduced form (--no-reduced: the published width)")
+    p.add_argument("--batch", type=int, default=4, help="LM prompts (not the ridge batch)")
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--ridge", action="store_true",
-                   help="serve solver traffic (the only ported workload)")
+                   help="serve solver traffic instead of LM decode")
     p.add_argument("--preempt-after", type=float, default=None,
                    help="run the preemption cycle instead: SIGTERM the checkpointing "
                         "service demo this many seconds into its flush, then resume it")
@@ -354,7 +395,7 @@ def main(argv=None):
             return serve_preempt_mesh(args)
         return serve_preempt(args)
     if not args.ridge:
-        p.error("pass --ridge (solver traffic) or --preempt-after S")
+        return serve_lm(args)
     args.requests = 24 if args.requests is None else args.requests
     if args.mesh:
         return serve_mesh(args)

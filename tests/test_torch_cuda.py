@@ -783,3 +783,30 @@ def test_quick_audit_passes_on_the_card(dev):
     assert any(f.name == "fixture:cloned_pinvs" and f.fired for f in report.fixtures)
     assert report.launches and report.state_audit["peak_bytes"] < report.state_audit[
         "pinvs_bytes"]
+
+
+@pytest.mark.parametrize("arch,reduced", [
+    ("qwen2-0.5b", False), ("gemma2-27b", True), ("recurrentgemma-9b", True),
+    ("rwkv6-3b", True), ("whisper-small", True), ("mixtral-8x22b", True),
+    ("qwen2-moe-a2.7b", True)])
+def test_lm_forward_on_card_matches_cpu(dev, arch, reduced):
+    """One fp32 forward of a (2, 16) prompt on the card and on the CPU with
+    the same seeded parameters: max |Δ| / max |logits| ≤ 1e-4 (matmuls
+    summed in other orders; qwen2-0.5b at its full width)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, init_params
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, generator=g, device=dev, max_seq=32)
+    cpu = Transformer(cfg, max_seq=32, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=dev)
+    enc = (torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g, device=dev)
+           if cfg.n_enc_layers else None)
+    on_card = model(tokens, enc_feats=enc, compute_dtype=torch.float32)[0].cpu()
+    on_cpu = cpu(tokens.cpu(), enc_feats=None if enc is None else enc.cpu(),
+                 compute_dtype=torch.float32)[0]
+    assert bool(torch.isfinite(on_card).all())
+    assert float((on_card - on_cpu).abs().max() / on_cpu.abs().max()) <= 1e-4
