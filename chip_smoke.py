@@ -170,12 +170,34 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    gate, held-out MSE under 0.05 × mean(y²), the B = 1 SJLT (Pallas row 5)
    launched by the solve (counts set to 0 before it) and held against its
    plain version at the probe's shape;
-11. summary: one ``{"kernels": [...]}`` line, then the device line last.
+11. LM training on one device (``train``, ``data.pipeline``,
+   ``launch.train``; no kernel of the port is on this path, in the
+   reference none either): (a) qwen2-0.5b at its full width, seeded
+   parameters, B = 8 × S = 128 tokens of ``SyntheticLM``, 2 microbatches,
+   remat, in fp32 and bf16: 10 steps on one batch, the last loss under
+   TRAIN_GATE × the first, the median ms of the warm steps, tokens/s, the
+   split between forward + backward and AdamW, the peak device memory of a
+   warm step, the device's busy share and activities over one step
+   (``torch.profiler``; a window with no device time fails), beside the
+   8·N·T FLOPs bound and AdamW's 28 B a parameter; (b) every config
+   reduced (and recurrentgemma with a remainder layer): one fp32 train step
+   from the same parameters and batch on the card and on the CPU, loss
+   and grad norm within 1e-4, every grad within 1e-3 of max |g|; (c) the
+   blocked cross-entropy at the full vocab in 8 chunks against ``lm_loss``
+   on the card, loss and every grad, and its peak device memory above
+   entry at (8, 512) under ``lm_loss``'s; (d) the launcher on the card
+   (reduced qwen2-0.5b, deterministic algorithms): 20 steps then a resume
+   to 30, and a SIGTERM after step 10's log line then a resume to 30,
+   every checkpointed leaf bitwise the uninterrupted 30 steps'; ``serve
+   --ckpt-dir`` from that checkpoint, and ``launch.train_lm`` for a few
+   steps;
+12. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -2329,6 +2351,389 @@ def phase_lm(smi):
     return launches, rec
 
 
+# phase 11: LM training at qwen2-0.5b's full width: B × S tokens of one
+# SyntheticLM batch, TRAIN_MB microbatches, remat, TRAIN_STEPS steps
+TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = "qwen2-0.5b", 8, 128, 2, 10
+TRAIN_LR = 3e-3
+# the steps train on one batch: on fresh draws 10 steps cannot lower the
+# loss (three quarters of SyntheticLM's tokens are uniform draws), while
+# one batch of 1024 tokens is memorized within a few steps; the last loss
+# must fall under this share of the first
+TRAIN_GATE = 0.5
+# (b) the same fp32 step on the card and on the CPU: matmuls summed in
+# other orders (about 1e-6 of the scale); each grad against max |g| of all
+TRAIN_CPU_REL_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# (c) the blocked loss against lm_loss: the reference's own bound
+# (tests/test_blocked_ce.py)
+CE_LOSS_TOL, CE_RTOL, CE_ATOL, CE_CHUNKS = 1e-5, 2e-4, 2e-5, 8
+# (d) the launcher's reduced runs
+LAUNCH_FLAGS = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "4", "--seq", "64",
+                "--save-every", "10", "--log-every", "1"]
+# bitwise resumes on the card need deterministic kernels (the embedding's
+# backward accumulates with atomics otherwise)
+DETERMINISTIC = ("import sys, torch; torch.use_deterministic_algorithms(True); "
+                 "from repro_torch.launch.train import main; main(sys.argv[1:])")
+
+
+# device kernels by kind, from their names (cuBLAS/CUTLASS GEMMs, the bf16
+# ones named nvjet, PyTorch's elementwise and reduction templates, its
+# softmax, the foreach kernels)
+KERNEL_KINDS = (("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+                ("foreach", ("multi_tensor", "foreach")),
+                ("softmax", ("softmax",)),
+                ("reduction", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def _device_kinds(events):
+    """Device ms by kernel kind of a profile's device events, the five
+    kernels with the most device time (name, ms, launches), and the one of
+    kind "other" with the most."""
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    kinds, other = {}, []
+    for name, (ms, n) in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS if any(x in low for x in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        if kind == "other":
+            other.append((name, ms, n))
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])[:5]
+    return kinds, top, max(other, key=lambda r: r[1], default=None)
+
+
+def _train_step_split(step, model, opt, batch, tcfg):
+    """(ms of a warm step, ms of AdamW alone): CUDA events, median of 5."""
+    from repro_torch.train.optimizer import adamw_update
+
+    step_ms = time_ms(lambda: step(model, opt, batch), reps=5, warm=1)
+    params = dict(model.named_parameters())
+    grads = {k: p.grad for k, p in params.items()}
+    adam_ms = time_ms(lambda: adamw_update(tcfg.opt, params, grads, opt), reps=5, warm=1)
+    return step_ms, adam_ms
+
+
+def _train_full(smi, cd, tag):
+    """Phase 11 (a) in one compute dtype."""
+    import torch
+
+    from repro_torch.analysis.roofline import (
+        PEAK_BF16_FLOPS,
+        adamw_terms,
+        bound_ms,
+        lm_train_terms,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.breakdown import device_events, device_totals
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainConfig, init_opt_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    model = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev,
+                        max_seq=TRAIN_SEQ)
+    opt = init_opt_state(model)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS),
+                       num_microbatches=TRAIN_MB, compute_dtype=cd, remat=True)
+    step = make_train_step(cfg, tcfg)
+    batch = device_batch(next(SyntheticLM(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_SEQ)),
+                         dev)
+    losses, norms, walls = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))                 # waits for the card
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    ok = all(math.isfinite(v) for v in losses + norms) and losses[-1] < TRAIN_GATE * losses[0]
+    tokens = TRAIN_B * TRAIN_SEQ
+    n = sum(p.numel() for p in model.parameters())
+    # the steps above were the run; what follows times more steps
+    step_ms, adam_ms = _train_step_split(step, model, opt, batch, tcfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(model, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # launch/breakdown._device_profile's reading, its events kept for the kinds
+    events = device_events(lambda: step(model, opt, batch))
+    busy, n_dev, n_copies = device_totals(events)
+    if busy is None:
+        raise SystemExit(f"chip_smoke: {tag}: the profiler saw no device time in a train step")
+    kinds, top, other = _device_kinds(events)
+    peak_flops = PEAK_BF16_FLOPS if cd == torch.bfloat16 else PEAK_FP32_FLOPS
+    fb_flops, fb_bytes = lm_train_terms(n, tokens)
+    fb_bound, fb_by = bound_ms(fb_flops, fb_bytes, peak_flops)
+    ad_flops, ad_bytes = adamw_terms(n)
+    ad_bound, ad_by = bound_ms(ad_flops, ad_bytes)
+    walls_ms = sorted(w * 1e3 for w in walls[1:])
+    print(f"[train] {tag}: B={TRAIN_B}, S={TRAIN_SEQ}, {TRAIN_MB} microbatches, remat, "
+          f"{n:,} parameters; losses {' '.join(f'{v:.4f}' for v in losses)} (gate: last < "
+          f"{TRAIN_GATE} × first: {'ok' if ok else 'FAIL'}), grad norms {norms[0]:.4f} → "
+          f"{norms[-1]:.4f}; host clock of the 9 warm steps: median "
+          f"{walls_ms[len(walls_ms) // 2]:.3f} ms ({smi})")
+    print(f"[train] {tag}: step {step_ms:.3f} ms (CUDA events, median of 5), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; forward+backward {step_ms - adam_ms:.3f} ms "
+          f"against its {fb_bound:.3f} ms bound ({fb_by}: {fb_flops:.4e} FLOPs), AdamW "
+          f"{adam_ms:.3f} ms against its {ad_bound:.3f} ms bound ({ad_by}: {ad_bytes:,.0f} B) "
+          f"({adam_ms / step_ms:.3f} of the step); peak device memory of a warm step {peak:,} B "
+          f"({peak - base:,} B above the {base:,} B held before it); one step under the "
+          f"profiler: device busy {busy * 1e3:.2f} ms, {busy * 1e3 / step_ms:.3f} of the step, "
+          f"{n_dev} device activities ({n_copies} memcpy/memset) ({smi})")
+    total = sum(kinds.values())
+    print(f"[train] {tag}: device time of one step by kernel kind: " + ", ".join(
+        f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in sorted(kinds.items(),
+                                                             key=lambda kv: -kv[1]))
+        + "; the five longest: " + "; ".join(f"{name[:70]} {ms:.2f} ms × {n}"
+                                            for name, ms, n in top)
+        + ("" if other is None else
+           f"; the longest of the other kinds: {other[0][:70]} {other[1]:.2f} ms × {other[2]}")
+        + f" ({smi})")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {tag}: training did not lower the loss under the gate")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+
+
+def _grads(model):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+
+
+def _train_configs_card_vs_cpu(smi):
+    """Phase 11 (b): one fp32 train step of every config reduced on the card
+    and on the CPU, from the same parameters and batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.train import AdamWConfig, TrainConfig, init_opt_state, make_train_step
+
+    dev = torch.device("cuda")
+    worst = [0.0, 0.0, 0.0]
+    for arch, n_layers in [(a, None) for a in ARCHS] + [("recurrentgemma-9b", 7)]:
+        cfg = get_config(arch).reduced()
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                           num_microbatches=2, compute_dtype=torch.float32)
+        g = torch.Generator(device=dev).manual_seed(3)
+        card = init_params(cfg, generator=g, device=dev, max_seq=32)
+        cpu = Transformer(cfg, max_seq=32, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        batch = next(SyntheticLM(vocab=cfg.vocab, batch=4, seq_len=16, seed=1))
+        if cfg.n_enc_layers:
+            batch["enc_feats"] = torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                             generator=torch.Generator().manual_seed(2)).numpy()
+        out = {}
+        for name, model, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+            _, _, m = make_train_step(cfg, tcfg)(model, init_opt_state(model),
+                                                 device_batch(batch, d))
+            out[name] = (float(m["loss"]), float(m["grad_norm"]), _grads(model).cpu())
+        (l1, n1, g1), (l2, n2, g2) = out["card"], out["cpu"]
+        errs = (abs(l1 - l2) / abs(l2), abs(n1 - n2) / abs(n2),
+                float((g1 - g2).abs().max() / g2.abs().max()))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        ok = (errs[0] <= TRAIN_CPU_REL_TOL and errs[1] <= TRAIN_CPU_REL_TOL
+              and errs[2] <= TRAIN_GRAD_TOL and all(map(math.isfinite, (l1, n1))))
+        print(f"[train] {cfg.name} ({cfg.n_layers} layers, {cfg.n_rem} remainder): card against "
+              f"CPU, loss {l1:.6f} / {l2:.6f} (rel {errs[0]:.2e}), grad norm rel {errs[1]:.2e}, "
+              f"worst grad |Δ| / max |g| {errs[2]:.2e} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {cfg.name}: the card's train step disagrees with "
+                             "the CPU's")
+    print(f"[train] every config reduced, card against CPU: worst loss rel {worst[0]:.2e}, "
+          f"grad norm rel {worst[1]:.2e}, grad {worst[2]:.2e} (gates {TRAIN_CPU_REL_TOL:g}, "
+          f"{TRAIN_CPU_REL_TOL:g}, {TRAIN_GRAD_TOL:g}) ({smi})")
+
+
+def _blocked_ce(smi):
+    """Phase 11 (c): the blocked loss at the full vocab against lm_loss on
+    the card (loss, every grad), and the peak device memory above entry of
+    each at (8, 512)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.step import blocked_lm_loss, lm_loss
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    model = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev,
+                        max_seq=512).requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def run(fn, B, S, **kw):
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=g, device=dev)
+        mask = torch.ones((B, S), device=dev)
+        mask[0, :3] = 0.0
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = fn(model, cfg, toks[:, :-1], toks[:, 1:], mask, compute_dtype=torch.float32,
+                     remat=True, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), _grads(model), torch.cuda.max_memory_allocated() - base
+
+    fns = {"lm_loss": lm_loss,
+           "blocked": lambda *a, **kw: blocked_lm_loss(*a, ce_chunks=CE_CHUNKS, **kw)}
+    # (4, 128): the values; the same tokens for both
+    state = g.get_state()
+    got = {}
+    for name, fn in fns.items():
+        g.set_state(state)
+        got[name] = run(fn, 4, TRAIN_SEQ)
+    (lb, gb, _), (lp, gp, _) = got["blocked"], got["lm_loss"]
+    bad = int((~torch.isclose(gb, gp, rtol=CE_RTOL, atol=CE_ATOL)).sum())
+    ok = abs(lb - lp) < CE_LOSS_TOL and bad == 0
+    print(f"[train] blocked CE, {cfg.name} vocab {cfg.vocab} = {CE_CHUNKS} × "
+          f"{cfg.vocab // CE_CHUNKS}, (4, {TRAIN_SEQ}) fp32: loss {lb:.6f} against lm_loss "
+          f"{lp:.6f} (|Δ| {abs(lb - lp):.2e}, gate {CE_LOSS_TOL:g}), worst grad |Δ| "
+          f"{float((gb - gp).abs().max()):.2e}, {bad} of {gb.numel():,} outside rtol {CE_RTOL:g}, "
+          f"atol {CE_ATOL:g} ({'ok' if ok else 'FAIL'})")
+    del gb, gp
+    # (8, 512): the peaks, a warm call of each first
+    peaks = {}
+    for name, fn in fns.items():
+        run(fn, 8, 512)
+        peaks[name] = run(fn, 8, 512)[2]
+    lower = peaks["blocked"] < peaks["lm_loss"]
+    print(f"[train] blocked CE at (8, 512) fp32: peak device memory above entry "
+          f"{peaks['blocked']:,} B against lm_loss's {peaks['lm_loss']:,} B "
+          f"({peaks['blocked'] / peaks['lm_loss']:.3f}; logits alone "
+          f"{8 * 512 * cfg.vocab * 4:,} B) ({'ok' if lower else 'FAIL'}) ({smi})")
+    if not (ok and lower):
+        raise SystemExit("chip_smoke: the blocked cross-entropy disagrees with lm_loss or "
+                         "does not lower the peak")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _launch_leaves(ckpt_dir):
+    """Every leaf of the latest step of a launcher's directory, on the host."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.models import Transformer
+    from repro_torch.train import init_opt_state
+
+    model = Transformer(get_config("qwen2-0.5b").reduced(), max_seq=64, device="cpu")
+    tree, extra = CheckpointManager(ckpt_dir).restore(bridge.train_tree(model,
+                                                                        init_opt_state(model)))
+    return {k: v.numpy() for k, v in _flatten(tree).items()}, extra
+
+
+def _train_launcher(smi):
+    """Phase 11 (d): the launcher on the card in subprocesses with
+    deterministic algorithms: an uninterrupted 30 steps, 20 then a resume
+    to 30, and a SIGTERM after step 10's log line then a resume to 30 (the
+    first launches run side by side); then ``serve --ckpt-dir`` and
+    ``train_lm`` in this process."""
+    import signal
+
+    import numpy as np
+
+    from repro_torch.launch import serve, train_lm
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    t0 = time.perf_counter()
+    started = []
+
+    def launch(name, steps):
+        started.append(subprocess.Popen(
+            [sys.executable, "-u", "-c", DETERMINISTIC, *LAUNCH_FLAGS, "--steps", str(steps),
+             "--ckpt-dir", str(work / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT)))
+        return started[-1]
+
+    def finish(p, name):
+        out, err = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: the launcher ({name}) failed:\n{err[-3000:]}")
+        return out
+
+    try:
+        procs = {"straight": launch("straight", 30), "resumed": launch("resumed", 20),
+                 "sigterm": launch("sigterm", 30)}
+        for line in procs["sigterm"].stdout:
+            if line.startswith("step    10 "):
+                procs["sigterm"].send_signal(signal.SIGTERM)
+                break
+        outs = {k: finish(p, k) for k, p in procs.items()}
+        if "preemption requested" not in outs["sigterm"]:
+            raise SystemExit("chip_smoke: the SIGTERM did not stop the launcher")
+        stopped = _launch_leaves(work / "sigterm")[1]["step"]
+        resumes = [launch("resumed", 30), launch("sigterm", 30)]
+        outs["resumed"] = finish(resumes[0], "resumed to 30")
+        outs["sigterm"] = finish(resumes[1], "resumed after SIGTERM")
+        want, _ = _launch_leaves(work / "straight")
+        same = {}
+        for name in ("resumed", "sigterm"):
+            got, extra = _launch_leaves(work / name)
+            same[name] = (extra["step"] == 30 and got.keys() == want.keys() and all(
+                got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want))
+        last = [ln for ln in outs["straight"].splitlines() if ln.startswith("step")][-1]
+        print(f"[train] launcher on the card (qwen2-0.5b reduced, deterministic algorithms): "
+              f"20 → 30 resumed bitwise the uninterrupted 30 steps: {same['resumed']}; the "
+              f"SIGTERM after step 10's log line committed step {stopped}, resumed to 30 "
+              f"bitwise: {same['sigterm']} ({len(want)} leaves); the uninterrupted run's last "
+              f"log line: {last} ({time.perf_counter() - t0:.1f} s for the five launches)")
+        if not all(same.values()) or stopped < 10:
+            raise SystemExit("chip_smoke: a resumed training run is not the uninterrupted one")
+        ids = serve.main(["--arch", "qwen2-0.5b", "--batch", "2", "--prompt-len", "8",
+                          "--new-tokens", "8", "--ckpt-dir", str(work / "sigterm")])
+        if ids.shape != (2, 8) or ids.device.type != "cuda":
+            raise SystemExit("chip_smoke: serve --ckpt-dir gave no ids on the card")
+        t1 = time.perf_counter()
+        train_lm.main(["--steps", "4", "--batch", "4", "--seq", "128", "--ckpt-dir",
+                       str(work / "train_lm")])
+        print(f"[train] launch.train_lm: 4 steps of qwen2-100m on the card in "
+              f"{time.perf_counter() - t1:.1f} s ({smi})")
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train(smi):
+    """Phase 11: LM training on one device."""
+    import torch
+
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"[time] phase 11 {part}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    for cd, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        _train_full(smi, cd, f"{TRAIN_ARCH} {name}")
+        lap(f"(a) {name}")
+    _train_configs_card_vs_cpu(smi)
+    lap("(b)")
+    _blocked_ce(smi)
+    lap("(c)")
+    _train_launcher(smi)
+    lap("(d)")
+
+
 def main() -> int:
     import torch
 
@@ -2389,6 +2794,8 @@ def main() -> int:
     lap("phase 9 (invariant audit, peak device memory)")
     probe_launches, probe_rec = phase_lm(smi)
     lap("phase 10 (LM serving and the ridge probe)")
+    phase_train(smi)
+    lap("phase 11 (LM training)")
     for r in paper_rows:
         if r["name"] == "sjlt (B = 1)":
             r["launches"] += probe_launches["_sjlt_kernel"]

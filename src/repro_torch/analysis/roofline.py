@@ -87,6 +87,21 @@ def sjlt_terms(B: int, n: int, d: int, M: int, *, a_itemsize: int = 4,
     return flops, float(nbytes)
 
 
+def lm_train_terms(n_params: int, tokens: int) -> tuple[float, float]:
+    """One LM train step's forward and backward under remat (no optimizer):
+    2·N·T FLOPs forward, 4·N·T backward, and 2·N·T for the forward that
+    remat runs again inside the backward, so 8·N·T and not the usual 6·N·T
+    (attention's own products left out); the parameters read once in fp32
+    and their grads written once."""
+    return 8.0 * n_params * tokens, 8.0 * n_params
+
+
+def adamw_terms(n_params: int) -> tuple[float, float]:
+    """One fp32 AdamW update: p, g, m and v read once and p, m and v
+    written once (28 B a parameter), about 15 operations a parameter."""
+    return 15.0 * n_params, 28.0 * n_params
+
+
 def allreduce_bytes(payload_bytes: int, world: int) -> float:
     """Bytes each rank sends in a ring all-reduce of ``payload_bytes``:
     2·(K − 1)/K of the payload (a reduce-scatter, then an all-gather)."""

@@ -1,7 +1,11 @@
 """The state carried between the JAX reference and the port.
 
 The solver has no weights: its state is the problem data and the sketch
-randomness. The LM scaffold's state is a parameter tree and a decode cache.
+randomness. The LM scaffold's state is a parameter tree, a decode cache and
+AdamW's state. One mapping (``to_ref_tree``/``from_ref_tree``) carries the
+parameters, their grads and the optimizer's moments between the port's
+per-layer names and the reference's stacked tree; it serves the parity
+tests and the training checkpoints, which either package restores.
 These helpers turn numpy arrays (what ``np.asarray`` gives for the
 reference's arrays) into the port's tensors and modules on an explicit
 device, and the port's results back into numpy, so the two packages can be
@@ -11,6 +15,7 @@ run on the same inputs.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -18,6 +23,7 @@ import torch
 from .core.quadratic import Quadratic
 from .device import resolve_device
 from .models.transformer import Transformer
+from .train.optimizer import OptState
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
@@ -69,20 +75,122 @@ def to_numpy(obj):
     return obj
 
 
-def _ref_leaf(tree: dict, key: str):
-    """The reference leaf of a port parameter: ``blocks.p0_attn.3.attn.wq``
-    is ``tree["blocks"]["p0_attn"]["attn"]["wq"][3]`` (the reference stacks
-    a pattern position's layers on a leading axis), ``enc_blocks.3.…`` the
-    same under ``enc_blocks``, anything else the path itself."""
+def _ref_path(key: str) -> tuple[tuple[str, ...], int | None]:
+    """Where a port parameter lives in the reference's tree:
+    ``blocks.p0_attn.3.attn.wq`` is ``("blocks", "p0_attn", "attn", "wq")``
+    at index 3 of the leading axis (the reference stacks a pattern
+    position's layers), ``enc_blocks.3.…`` the same under ``enc_blocks``,
+    anything else the path itself with no index."""
     parts, idx = key.split("."), None
     if parts[0] == "blocks":
         parts, idx = parts[:2] + parts[3:], int(parts[2])
     elif parts[0] == "enc_blocks":
         parts, idx = parts[:1] + parts[2:], int(parts[1])
-    node = tree
+    return tuple(parts), idx
+
+
+def _walk(tree: dict, parts):
     for p in parts:
-        node = node[p]
+        tree = tree[p]
+    return tree
+
+
+def _ref_leaf(tree: dict, key: str):
+    parts, idx = _ref_path(key)
+    node = _walk(tree, parts)
     return np.asarray(node if idx is None else node[idx])
+
+
+def to_ref_tree(named: Mapping[str, torch.Tensor]) -> dict:
+    """The reference's tree of a map keyed by the port's parameter names
+    (parameters, their grads, AdamW's moments): each pattern position's
+    and the encoder's layers stacked on a leading axis, in layer order;
+    ``blocks`` and ``rem`` are there, empty or not, as in the reference's."""
+    leaves: dict = {}
+    for key, t in named.items():
+        parts, idx = _ref_path(key)
+        if idx is None:
+            leaves[parts] = t
+        else:
+            leaves.setdefault(parts, {})[idx] = t
+    tree: dict = {"blocks": {}, "rem": {}}
+    for parts, v in leaves.items():
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = (torch.stack([v[j] for j in range(len(v))]) if isinstance(v, dict)
+                           else v)
+    return tree
+
+
+def from_ref_tree(tree: dict, names) -> dict[str, torch.Tensor]:
+    """``to_ref_tree``'s inverse: {name: tensor} for the port's parameter
+    ``names``, a stacked leaf's layers as views of it."""
+    out = {}
+    for key in names:
+        parts, idx = _ref_path(key)
+        node = _walk(tree, parts)
+        out[key] = node if idx is None else node[idx]
+    return out
+
+
+def model_to_numpy(model: Transformer) -> dict:
+    """The reference's ``init_params`` tree (numpy) holding the port
+    model's numbers: ``model_from_numpy``'s exact inverse."""
+    return to_numpy(to_ref_tree({k: p.detach() for k, p in model.named_parameters()}))
+
+
+def grads_to_numpy(model: Transformer) -> dict:
+    """The port's ``.grad`` of every parameter in the reference's tree, as
+    ``jax.grad`` of a loss over the reference's parameters gives it."""
+    return to_numpy(to_ref_tree({k: p.grad for k, p in model.named_parameters()}))
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """AdamW's state in the reference's layout: (mu, nu) trees and the
+    int32 step, as numpy."""
+    return OptState(mu=to_numpy(to_ref_tree(state.mu)), nu=to_numpy(to_ref_tree(state.nu)),
+                    step=to_numpy(state.step))
+
+
+def opt_state_from_numpy(state_np, model: Transformer, *, device=None) -> OptState:
+    """The reference's ``OptState`` (numpy leaves) keyed by the port
+    model's parameter names, on ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    names = [k for k, _ in model.named_parameters()]
+
+    def moments(tree):
+        return {k: _tensor(v, torch.float32, dev)
+                for k, v in from_ref_tree(tree, names).items()}
+    return OptState(mu=moments(state_np[0]), nu=moments(state_np[1]),
+                    step=_tensor(state_np[2], torch.int32, dev))
+
+
+def train_tree(model: Transformer, state: OptState) -> tuple:
+    """The training state as the reference checkpoints it, ``(params,
+    OptState)`` in its tree layout: ``ft.CheckpointManager`` writes its
+    leaves under the reference's paths (``0/embed``, ``1/.mu/embed``,
+    ``1/.step``), so either package restores the other's directory."""
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return to_ref_tree(params), OptState(to_ref_tree(state.mu), to_ref_tree(state.nu),
+                                         state.step)
+
+
+@torch.no_grad()
+def load_train_tree(tree: tuple, model: Transformer, state: OptState | None = None):
+    """Copy a ``train_tree``-shaped tree (as ``CheckpointManager.restore``
+    returns it) into ``model`` and, unless it is None, ``state``, in place.
+    ``state`` may be None in the tree and here (a server reads the
+    parameters alone)."""
+    params, opt = tree
+    named = dict(model.named_parameters())
+    for k, v in from_ref_tree(params, named).items():
+        named[k].copy_(v)
+    if state is not None:
+        for mine, theirs in ((state.mu, opt.mu), (state.nu, opt.nu)):
+            for k, v in from_ref_tree(theirs, named).items():
+                mine[k].copy_(v)
+        state.step.copy_(opt.step)
 
 
 def model_from_numpy(params_np: dict, cfg, *, device=None) -> Transformer:

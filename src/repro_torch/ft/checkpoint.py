@@ -8,10 +8,14 @@ Port of ``repro.ft.checkpoint.CheckpointManager``. One directory per step::
         COMMITTED              # written last: its presence marks a valid step
     <dir>/step_000000042.tmp/  # staging; renamed into place by os.replace
 
-A tree is a dict of tensors, nested or not (a ``PaddedState._asdict()``).
+A tree is dicts, tuples, NamedTuples, lists and None over tensors (a
+``PaddedState._asdict()``, or a training state ``(params, OptState)``).
 The layout, the leaf paths (keys joined by ``/``, which becomes ``__`` in
-the file name) and the dtype names are the reference's, so a directory
-written by either package restores in the other. bfloat16 leaves, which
+the file name; a NamedTuple's field is ``.field`` and a tuple's item its
+index, as JAX names them) and the dtype names are the reference's, so a
+directory written by either package restores in the other. A ``like``
+tree of ``(params, None)`` restores the ``0/…`` leaves of a training
+checkpoint alone. bfloat16 leaves, which
 numpy cannot store, are written as their uint16 bits with ``"bfloat16"``
 in the manifest, as the reference does, and restored with
 ``torch.from_numpy(...).view(torch.bfloat16)``.
@@ -36,7 +40,7 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -45,21 +49,46 @@ def _join(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
 
+def _children(tree):
+    """(path key, child) pairs of a container, as JAX's
+    ``tree_flatten_with_path`` names them: a dict's keys in sorted order, a
+    NamedTuple's fields as ``.field``, a tuple's or list's items by index;
+    None is a container with no children."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
 def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """{leaf path: tensor} of a (nested) dict of tensors: keys joined by
-    ``/``, in sorted order as JAX's tree flattening gives them."""
-    if not isinstance(tree, dict):
+    """{leaf path: tensor} of a tree of dicts, tuples, NamedTuples, lists
+    and None over tensors: keys joined by ``/`` as the reference's
+    ``_flatten`` gives them (``(params, OptState)`` has ``0/embed``,
+    ``1/.mu/embed``, ``1/.step``)."""
+    children = _children(tree)
+    if children is None:
         return {prefix: tree}
     flat = {}
-    for k in sorted(tree):
-        flat.update(_flatten(tree[k], _join(prefix, k)))
+    for k, v in children:
+        flat.update(_flatten(v, _join(prefix, k)))
     return flat
 
 
 def _unflatten(like, flat: dict, prefix: str = ""):
-    if not isinstance(like, dict):
+    if like is None:
+        return None
+    children = _children(like)
+    if children is None:
         return flat[prefix]
-    return {k: _unflatten(v, flat, _join(prefix, k)) for k, v in like.items()}
+    values = [_unflatten(v, flat, _join(prefix, k)) for k, v in children]
+    if isinstance(like, dict):
+        return dict(zip([k for k, _ in children], values))
+    return type(like)(*values) if hasattr(like, "_fields") else type(like)(values)
 
 
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -135,7 +164,7 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like: dict, step: int | None = None) -> tuple[dict, dict]:
+    def restore(self, tree_like, step: int | None = None) -> tuple[Any, dict]:
         """Restore into the structure of ``tree_like`` (default: the latest
         committed step). Every leaf's shape must match; it comes back on the
         like leaf's device with its dtype and strides. Returns (tree,

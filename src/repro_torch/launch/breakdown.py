@@ -99,21 +99,39 @@ def _phases(svc, cls, reqs, segment_trips):
     return times, segments, gaps, int(st.trips), q, seeds
 
 
-def _device_profile(fn) -> tuple[float | None, int, int]:
-    """One torch.profiler run of ``fn``: the sum of the device times of the
-    kernels it ran in s (None where the profiler reports no device time),
-    the number of device activities it recorded, and how many of those
-    were memcpys or memsets."""
+def on_device(events) -> list:
+    """The device-side events (kernels, memcpys, memsets) among a profile's
+    events. Only these carry device time of their own: an op's event (and
+    its row in ``key_averages()``) also carries the device time of the
+    kernels it launched, so a sum over every event counts each kernel
+    twice."""
     from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
+def device_events(fn) -> list:
+    """The device-side events of one torch.profiler run of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = sum(name.startswith(("Memcpy", "Memset")) for name in on_device)
-    return (total * 1e-6 if total > 0 else None), len(on_device), copies
+    return on_device(prof.events())
+
+
+def device_totals(events) -> tuple[float | None, int, int]:
+    """(the device time of device-side ``events`` in s, None where it is 0;
+    how many there are; how many are memcpys or memsets)."""
+    total = sum(e.device_time_total for e in events)
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return (total * 1e-6 if total > 0 else None), len(events), copies
+
+
+def _device_profile(fn) -> tuple[float | None, int, int]:
+    """One torch.profiler run of ``fn``: ``device_totals`` of its device
+    events."""
+    return device_totals(device_events(fn))
 
 
 def main(argv=None):

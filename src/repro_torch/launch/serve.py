@@ -3,7 +3,8 @@ ridge, GLM and λ-path requests through the port's shape-class bucketing
 and batched adaptive engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2-0.5b] \
-        [--no-reduced] [--batch B] [--prompt-len S] [--new-tokens T] [--device cuda|cpu]
+        [--no-reduced] [--batch B] [--prompt-len S] [--new-tokens T] [--device cuda|cpu] \
+        [--ckpt-dir D]
     PYTHONPATH=src python -m repro_torch.launch.serve --ridge --requests 64 \\
         [--glm N] [--path N] [--path-points P] \\
         [--sketch gaussian|gaussian_dense|sjlt|srht] [--dtype fp32|bf16|int8] \\
@@ -17,7 +18,10 @@ Without ``--ridge`` or ``--preempt-after`` it serves LM traffic, as
 ``--no-reduced``) gets seeded parameters (``models.init_params``), B random
 prompts (and whisper's frame embeddings) come from a seeded generator, and
 ``serve.step.greedy_generate`` decodes them in fp32; it prints tokens/s and
-the first sequence's ids.
+the first sequence's ids. ``--ckpt-dir`` replaces the seeded parameters
+with those of the latest training checkpoint there, written by the port's
+``launch.train`` or the reference's (the ``0/…`` leaves of its ``(params,
+OptState)`` tree), as ``repro.launch.serve --ckpt-dir`` does.
 
 The ridge path mirrors ``repro.launch.serve --ridge``; the data is drawn
 from a seeded ``torch.Generator`` on the chosen device. ``--glm N`` adds N logistic
@@ -73,10 +77,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core.level_grams import COMPUTE_DTYPES, PADDED_SKETCHES
 from repro_torch.core.objectives import synthetic_logistic_problem
 from repro_torch.device import resolve_device
+from repro_torch.ft import CheckpointManager
 from repro_torch.models import init_params
 from repro_torch.serve.solver_service import GLMSolution, PathSolution, SolverService
 from repro_torch.serve.step import greedy_generate
@@ -327,6 +333,12 @@ def serve_lm(args) -> torch.Tensor:
     max_seq = args.prompt_len + args.new_tokens + 1
     g = torch.Generator(device=dev).manual_seed(args.seed)
     model = init_params(cfg, generator=g, device=dev, max_seq=max_seq)
+    if args.ckpt_dir:
+        like = bridge.to_ref_tree({k: p.detach() for k, p in model.named_parameters()})
+        tree, extra = CheckpointManager(args.ckpt_dir).restore((like, None))
+        bridge.load_train_tree(tree, model)
+        print(f"restored the parameters of training step {extra.get('step')} from "
+              f"{args.ckpt_dir}")
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=g, device=dev)
     enc = (torch.randn((args.batch, cfg.enc_seq, cfg.d_model), generator=g, device=dev)
            if cfg.n_enc_layers else None)
@@ -350,6 +362,9 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=4, help="LM prompts (not the ridge batch)")
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--new-tokens", type=int, default=16)
+    p.add_argument("--ckpt-dir", default="",
+                   help="decode with the parameters of the latest training checkpoint "
+                        "here (written by either package's train launcher)")
     p.add_argument("--ridge", action="store_true",
                    help="serve solver traffic instead of LM decode")
     p.add_argument("--preempt-after", type=float, default=None,

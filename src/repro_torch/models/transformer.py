@@ -13,15 +13,21 @@ heterogeneous kinds, caches, logits.
   shapes (``k``, ``v``, ``ck``, ``cv``, ``h``, ``conv``, ``S``, ``tm_x``,
   ``cm_x``).
 * Whisper (enc-dec) adds an encoder stack and cross-attention caches.
+* ``forward(..., remat=True)`` recomputes each decoder layer in the
+  backward pass (training only: it raises with a cache); the encoder's
+  layers are not recomputed, as in the reference. ``hidden`` is
+  ``forward`` without the head, for the blocked cross-entropy.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -159,11 +165,18 @@ class Transformer(nn.Module):
             for name, layer in self.rem.items():
                 yield "rem", name, None, layer
 
-    def forward(self, tokens, *, cache=None, cache_pos: int | None = None, enc_feats=None,
-                compute_dtype=torch.bfloat16):
-        """tokens (B, S) int64 → (logits fp32 (B, S, V), new_cache or None).
-        With a cache, ``cache_pos`` is the absolute position of tokens[:, 0]."""
+    def hidden(self, tokens, *, cache=None, cache_pos: int | None = None, enc_feats=None,
+               compute_dtype=torch.bfloat16, remat: bool = False):
+        """The final-normed hidden states (B, S, d) in ``compute_dtype`` and
+        the new cache (None without one): ``forward`` without the head, which
+        ``train.step.blocked_lm_loss`` reads without building logits.
+        ``remat`` recomputes each layer's activations in the backward pass
+        (``torch.utils.checkpoint``, as the reference wraps ``apply_layer``
+        in ``jax.checkpoint``); it applies only without a cache, and the
+        values are the same either way."""
         cfg = self.cfg
+        if remat and cache is not None:
+            raise ValueError("remat applies only without a cache (training)")
         S = tokens.shape[1]
         x = self.embed_tokens(tokens, compute_dtype)
         start = 0 if cache is None else int(cache_pos)
@@ -184,17 +197,31 @@ class Transformer(nn.Module):
             lc = None
             if cache is not None:
                 lc = cache[group][name] if j is None else cache[group][name][j]
-            x, nc = layer(x, positions, lc, start, enc_out)
+            # the layers draw no randomness: no RNG state to replay
+            fn = (functools.partial(checkpoint, layer, use_reentrant=False,
+                                    preserve_rng_state=False) if remat else layer)
+            x, nc = fn(x, positions, lc, start, enc_out)
             if cache is not None:
                 if j is None:
                     new_cache[group][name] = nc
                 else:
                     new_cache[group][name].append(nc)
+        return self.final_norm(x), new_cache
 
-        x = self.final_norm(x)
-        head = self.embed.t() if cfg.tie_embeddings else self.lm_head
-        logits = (x @ head.to(compute_dtype)).float()
-        return L.softcap(logits, cfg.final_softcap), new_cache
+    def head(self) -> torch.Tensor:
+        """The (d, V) output projection: ``embed``ᵀ when tied."""
+        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+
+    def forward(self, tokens, *, cache=None, cache_pos: int | None = None, enc_feats=None,
+                compute_dtype=torch.bfloat16, remat: bool = False):
+        """tokens (B, S) int64 → (logits fp32 (B, S, V), new_cache or None).
+        With a cache, ``cache_pos`` is the absolute position of tokens[:, 0];
+        ``remat`` as in ``hidden``."""
+        x, new_cache = self.hidden(tokens, cache=cache, cache_pos=cache_pos,
+                                   enc_feats=enc_feats, compute_dtype=compute_dtype,
+                                   remat=remat)
+        logits = (x @ self.head().to(compute_dtype)).float()
+        return L.softcap(logits, self.cfg.final_softcap), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -252,3 +252,28 @@ def test_dense_pass_in_place_is_bitwise_the_out_of_place_pass(compute_dtype, wei
     want = prefix_level_grams(torch.matmul(round_to(S, ct), round_to(A, ct)), ladder,
                               inv_m_scale=True)
     assert torch.equal(got, want)
+
+
+def test_device_time_counts_each_kernel_once():
+    """``launch.breakdown``'s device time sums the device-side events only.
+    An op's event carries the device time of the kernels it launched as
+    well, so the sum over every ``key_averages()`` row that phases 10 and
+    11 of chip_smoke.py took before counted each kernel twice."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import FunctionEvent
+
+    from repro_torch.launch.breakdown import device_totals, on_device
+
+    op = FunctionEvent(id=1, name="aten::mm", thread=0, start_us=0, end_us=10,
+                       device_type=DeviceType.CPU, use_device="cuda")
+    op.append_kernel("gemm", 0, 5)
+    kernel = FunctionEvent(id=2, name="gemm", thread=0, start_us=2, end_us=7,
+                           device_type=DeviceType.CUDA, use_device="cuda")
+    copy = FunctionEvent(id=3, name="Memcpy HtoD", thread=0, start_us=8, end_us=9,
+                         device_type=DeviceType.CUDA, use_device="cuda")
+    assert op.self_device_time_total == kernel.self_device_time_total == 5
+    events = on_device([op, kernel, copy])
+    assert events == [kernel, copy]
+    busy, n, copies = device_totals(events)
+    assert busy == pytest.approx(6e-6) and (n, copies) == (2, 1)
+    assert device_totals([]) == (None, 0, 0)

@@ -80,3 +80,16 @@ def test_chip_smoke_takes_its_peaks_from_roofline():
     spec.loader.exec_module(mod)
     assert mod.bound_ms is rl.bound_ms
     assert mod.PEAK_FP32_FLOPS is rl.PEAK_FP32_FLOPS and mod.PEAK_INSTR == rl.PEAK_INSTR
+
+
+def test_lm_train_terms_of_phase_11():
+    """chip_smoke.py phase 11's bounds at qwen2-0.5b (494,032,768 parameters
+    with the qkv biases), B·S = 1024 tokens: 8·N·T FLOPs with remat, about
+    60 ms at the fp32 peak and 4.1 ms at the bf16 one; AdamW's 28 B a
+    parameter, 4.1 ms at the HBM rate."""
+    n, tokens = 494_032_768, 8 * 128
+    flops, nbytes = rl.lm_train_terms(n, tokens)
+    assert flops == 8 * n * tokens and nbytes == 8 * n
+    assert rl.bound_ms(flops, nbytes) == (pytest.approx(60.40, abs=0.01), "operations")
+    assert rl.bound_ms(flops, nbytes, P16)[0] == pytest.approx(4.092, abs=1e-3)
+    assert rl.bound_ms(*rl.adamw_terms(n)) == (pytest.approx(4.129, abs=1e-3), "bytes")
