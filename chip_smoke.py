@@ -191,7 +191,28 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    every checkpointed leaf bitwise the uninterrupted 30 steps'; ``serve
    --ckpt-dir`` from that checkpoint, and ``launch.train_lm`` for a few
    steps;
-12. summary: one ``{"kernels": [...]}`` line, then the device line last.
+12. sharded LM training and decode (``dist.sharding``,
+   ``make_train_step(mesh=)``, ``serve.step`` under a mesh, ``launch.train
+   --mesh``) on gloo ranks sharing the card (no kernel of the port is on
+   this path, in the reference none either): (a) phase 11's qwen2-0.5b,
+   seed, batch and AdamW on 4 ranks, mesh (2, 2), fsdp, the batch over
+   data, SHARD_STEPS fp32 steps: loss and grad norm of each step within
+   1e-4 relative of phase 11's fp32 steps; per rank the ms a step (CUDA
+   events), the bytes a step gathers and reduces, one gather of every
+   weight and one reduction of the full grads timed alone, the bytes of
+   placed state against 16 B × N / 4, and the peak device memory of a warm
+   step; (b) every config reduced (and recurrentgemma with a remainder
+   layer) on 2 ranks, mesh (2, 1), fsdp, a ragged mask split over data:
+   one fp32 step against the single-device step on the card, loss and
+   grad norm within 1e-4, every parameter within 1e-4; (c) greedy decode
+   at qwen2-0.5b's full width on (2, 2), B = 4 prompts of 32, 8 tokens:
+   every step's logits within 2e-4 of the single-device decode, the ids
+   equal, each cache placed as it went in and left unchanged; (d)
+   ``launch.train --mesh 4 --deterministic`` at reduced qwen2-0.5b: 10
+   steps then a relaunch to 15, and a SIGTERM to rank 2 after step 5's log
+   line (every rank exits 75 having committed one step) then a relaunch to
+   15, every checkpointed leaf bitwise the uninterrupted 15 steps';
+13. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -2499,6 +2520,7 @@ def _train_full(smi, cd, tag):
         raise SystemExit(f"chip_smoke: {tag}: training did not lower the loss under the gate")
     del model, opt, step, batch
     torch.cuda.empty_cache()
+    return losses, norms
 
 
 def _grads(model):
@@ -2713,7 +2735,8 @@ def _train_launcher(smi):
 
 
 def phase_train(smi):
-    """Phase 11: LM training on one device."""
+    """Phase 11: LM training on one device. Returns the fp32 run's losses
+    and grad norms, step by step (phase 12 (a) is held to them)."""
     import torch
 
     clock = [time.perf_counter()]
@@ -2723,14 +2746,230 @@ def phase_train(smi):
         print(f"[time] phase 11 {part}: {now - clock[0]:.1f} s")
         clock[0] = now
 
+    runs = {}
     for cd, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        _train_full(smi, cd, f"{TRAIN_ARCH} {name}")
+        runs[name] = _train_full(smi, cd, f"{TRAIN_ARCH} {name}")
         lap(f"(a) {name}")
     _train_configs_card_vs_cpu(smi)
     lap("(b)")
     _blocked_ce(smi)
     lap("(c)")
     _train_launcher(smi)
+    lap("(d)")
+    return runs["fp32"]
+
+
+# phase 12: sharded LM training and decode on gloo ranks sharing the card
+# (NCCL puts no two ranks on one GPU). (a) phase 11's model, seed, batch and
+# AdamW on (2, 2) with fsdp and the batch over data, SHARD_STEPS steps;
+# loss and grad norm against phase 11's fp32 steps
+SHARD_STEPS, SHARD_REL_TOL = 2, 1e-4
+# (b) every config reduced on (2, 1), one fp32 step against the
+# single-device step on the card: the reference's bound on parameters
+SHARD_PARAM_TOL = 1e-4
+# (c) greedy decode at full width on (2, 2): B prompts of P tokens, NEW
+# tokens; logits within the reference's 2e-4 (rtol = atol) of the
+# single-device decode, greedy ids equal
+SHARD_DECODE_B, SHARD_DECODE_P, SHARD_DECODE_NEW, SHARD_LOGIT_TOL = 4, 32, 8, 2e-4
+# (d) the launcher on 4 ranks at reduced qwen2-0.5b, deterministic algorithms
+SHARD_LAUNCH_FLAGS = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "4", "--seq", "64",
+                      "--save-every", "5", "--log-every", "1", "--mesh", "4",
+                      "--deterministic"]
+SHARD_JOB = "repro_torch.launch.sharded_lm:run_tasks"
+
+
+def _ragged_batch(cfg, B=4, S=16, seed=1):
+    """A batch whose mask holds 13, 16, 16 and 5 tokens in its rows (so a
+    data rank's share of a microbatch's Σ mask is not the microbatch's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1))
+    mask = np.ones((B, S), np.float32)
+    mask[0, :3], mask[3, 5:] = 0.0, 0.0
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+    if cfg.n_enc_layers:
+        batch["enc_feats"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _sharded_full(smi, single):
+    """Phase 12 (a) and (c) in one group of 4 gloo ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.param_count()
+    batch = next(SyntheticLM(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_SEQ))
+    prompt = np.random.default_rng(12).integers(0, cfg.vocab, (SHARD_DECODE_B, SHARD_DECODE_P))
+    t0 = time.perf_counter()
+    res = run_ranks(SHARD_JOB, 4, {"tasks": [
+        ("train", "train", dict(arch=TRAIN_ARCH, reduced=False, seed=0, max_seq=TRAIN_SEQ,
+                                model=2, fsdp=True, nmb=TRAIN_MB,
+                                opt=dict(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS),
+                                batch=batch, steps=SHARD_STEPS, measure=True, tensors=False)),
+        ("decode", "decode", dict(arch=TRAIN_ARCH, reduced=False, seed=0,
+                                  max_seq=SHARD_DECODE_P + SHARD_DECODE_NEW, model=2,
+                                  prompt=prompt, new=SHARD_DECODE_NEW, single=True,
+                                  greedy=False))]},
+        backend="gloo", device="cuda", timeout=900)
+    wall = time.perf_counter() - t0
+    losses, norms = single
+    worst, ok = 0.0, True
+    for r in res:
+        t = r["train"]
+        errs = [max(abs(m["loss"] - losses[i]) / abs(losses[i]),
+                    abs(m["grad_norm"] - norms[i]) / abs(norms[i]))
+                for i, m in enumerate(t["metrics"])]
+        worst = max(worst, *errs)
+        ok = ok and max(errs) <= SHARD_REL_TOL and all(
+            math.isfinite(m["loss"]) for m in t["metrics"])
+        traffic = t["traffic"][-1]
+        print(f"[shard] (a) rank {r['rank']}: {TRAIN_ARCH} fp32 on (2, 2), fsdp, B={TRAIN_B} × "
+              f"S={TRAIN_SEQ} over data, {TRAIN_MB} microbatches, remat: losses "
+              + " ".join(f"{m['loss']:.6f}" for m in t["metrics"])
+              + " (phase 11: " + " ".join(f"{v:.6f}" for v in losses[:SHARD_STEPS])
+              + "), grad norms " + " ".join(f"{m['grad_norm']:.6f}" for m in t["metrics"])
+              + " (phase 11: " + " ".join(f"{v:.6f}" for v in norms[:SHARD_STEPS])
+              + f"); ms a step (CUDA events) " + " ".join(f"{v:.1f}" for v in t["ms"])
+              + f"; a step all-reduces {traffic['gathered']:,} B gathering and "
+              f"{traffic['reduced']:,} B reducing; alone, one gather of every weight "
+              f"{t['gather_bytes']:,} B in {t['gather_ms']:.1f} ms, one reduction of the full "
+              f"grads {t['reduce_bytes']:,} B in {t['reduce_ms']:.1f} ms; placed state "
+              f"{t['placed_bytes']:,} B (16 B × N / 4 = {16 * n // 4:,}); peak device memory "
+              f"of the warm step {t['peak']:,} B (phase 11: 11,931,525,632 B on one device) "
+              f"({smi})")
+    print(f"[shard] (a) worst relative gap to phase 11's steps {worst:.2e} (gate "
+          f"{SHARD_REL_TOL:g}) ({'ok' if ok else 'FAIL'}); 4 ranks in {wall:.1f} s with (c)")
+    if not ok:
+        raise SystemExit("chip_smoke: the sharded train step disagrees with phase 11's")
+    d = res[0]["decode"]
+    gaps = [float((g - w).abs().max()) for g, w in zip(d["logits"], d["single_logits"])]
+    close = all(bool(((g - w).abs() <= SHARD_LOGIT_TOL * (1 + w.abs())).all())
+                for g, w in zip(d["logits"], d["single_logits"]))
+    same_ids = all(torch.equal(r["decode"]["ids"], d["single_ids"]) for r in res)
+    kept = all(r["decode"]["placements_kept"] and r["decode"]["input_unchanged"] for r in res)
+    for r in res:
+        print(f"[shard] (c) rank {r['rank']}: decode ms, prefill then each step: "
+              + " ".join(f"{v:.1f}" for v in r["decode"]["ms"]))
+    print(f"[shard] (c) greedy decode at full width on (2, 2), B={SHARD_DECODE_B}, prompts of "
+          f"{SHARD_DECODE_P}, {SHARD_DECODE_NEW} tokens: worst |Δlogit| to the single-device "
+          f"decode {max(gaps):.2e} (rtol = atol = {SHARD_LOGIT_TOL:g}: "
+          f"{'ok' if close else 'FAIL'}), greedy ids equal on every rank: {same_ids}, caches "
+          f"kept their placements and inputs unchanged: {kept}; the single-device steps ms "
+          + " ".join(f"{v:.1f}" for v in d["single_ms"]) + f" ({smi})")
+    if not (close and same_ids and kept):
+        raise SystemExit("chip_smoke: the sharded decode disagrees with the single-device one")
+
+
+def _sharded_configs(smi):
+    """Phase 12 (b): every config reduced, one sharded fp32 step on 2 ranks
+    against the single-device step on the card."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.mesh import run_ranks
+
+    configs = [(a, None) for a in ARCHS] + [("recurrentgemma-9b", 7)]
+    tasks = []
+    for arch, n_layers in configs:
+        cfg = get_config(arch).reduced()
+        tasks.append((f"{arch}/{n_layers}", "train", dict(
+            arch=arch, n_layers=n_layers, seed=3, max_seq=32, model=1, fsdp=True,
+            nmb=2, opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
+            batch=_ragged_batch(cfg), steps=1, single=True)))
+    res = run_ranks(SHARD_JOB, 2, {"tasks": tasks}, backend="gloo", device="cuda", timeout=900)
+    worst = [0.0, 0.0]
+    for name, _, _ in tasks:
+        got, single = res[0][name], res[0][name]["single"]
+        m, w = got["metrics"][0], single["metrics"][0]
+        rel = max(abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm"))
+        dp = max(float((got["params"][k] - v).abs().max()) for k, v in single["params"].items())
+        worst = [max(worst[0], rel), max(worst[1], dp)]
+        same = res[1][name]["metrics"] == got["metrics"]
+        ok = rel <= SHARD_REL_TOL and dp <= SHARD_PARAM_TOL and same and math.isfinite(m["loss"])
+        print(f"[shard] (b) {name}: on (2, 1), fsdp, the batch over data: loss {m['loss']:.6f} / "
+              f"{w['loss']:.6f}, loss and grad norm rel {rel:.2e}, worst parameter |Δ| {dp:.2e}, "
+              f"the ranks' metrics equal: {same} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the sharded step of {name} disagrees with the "
+                             "single-device one")
+    print(f"[shard] (b) every config reduced: worst loss/norm rel {worst[0]:.2e} (gate "
+          f"{SHARD_REL_TOL:g}), parameter {worst[1]:.2e} (gate {SHARD_PARAM_TOL:g}) ({smi})")
+
+
+def _sharded_launcher(smi):
+    """Phase 12 (d): ``launch.train --mesh 4`` on the card: 15 steps
+    straight, 10 then a relaunch to 15, and a SIGTERM to rank 2 after step
+    5's log line then a relaunch to 15 (the three side by side), every leaf
+    bitwise the uninterrupted run's."""
+    import concurrent.futures
+
+    from repro_torch.launch.mesh import EXIT_PREEMPTED, run_ranks
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    t0 = time.perf_counter()
+
+    def launch(name, steps, signal_rank=None):
+        argv = SHARD_LAUNCH_FLAGS + ["--steps", str(steps), "--ckpt-dir", str(work / name)]
+        return run_ranks("repro_torch.launch.train:mesh_rank", 4, {"argv": argv},
+                         backend="gloo", device="cuda", timeout=600, signal_rank=signal_rank)
+
+    def twice(name, first_steps, signal_rank=None):
+        return launch(name, first_steps, signal_rank), launch(name, 15)
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            straight = ex.submit(launch, "straight", 15)
+            resumed = ex.submit(twice, "resumed", 10)
+            stopped, after = ex.submit(twice, "sigterm", 15, (2, "step     5 ", 0.0)).result()
+            straight, resumed = straight.result(), [resumed.result()[1], after]
+        codes = [r.get("exit_code", 0) for r in stopped]
+        steps = {r.get("step") for r in stopped}
+        if codes != [EXIT_PREEMPTED] * 4 or len(steps) != 1:
+            raise SystemExit(f"chip_smoke: SIGTERM to rank 2 gave exit codes {codes}, "
+                             f"committed steps {steps}")
+        want, _ = _launch_leaves(work / "straight")
+        same = {}
+        for name in ("resumed", "sigterm"):
+            got, extra = _launch_leaves(work / name)
+            same[name] = (extra["step"] == 15 and got.keys() == want.keys() and all(
+                got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes()
+                for k in want))
+        last = [ln for ln in straight[0]["log"] if ln.startswith("step")][-1]
+        print(f"[shard] (d) launch.train --mesh 4 on the card (qwen2-0.5b reduced, (2, 2), "
+              f"deterministic): 10 → 15 bitwise the uninterrupted 15 steps: {same['resumed']}; "
+              f"SIGTERM to rank 2 after step 5's log line: exit codes {codes}, every rank "
+              f"committed step {steps.pop()}, resumed to 15 bitwise: {same['sigterm']} "
+              f"({len(want)} leaves); the uninterrupted run's last log line: {last} "
+              f"({time.perf_counter() - t0:.1f} s for the five launches) ({smi})")
+        if not all(same.values()):
+            raise SystemExit("chip_smoke: a resumed sharded training run is not the "
+                             "uninterrupted one")
+        if not all(any(ln.startswith("resumed from step") for ln in r[0]["log"])
+                   for r in resumed):
+            raise SystemExit("chip_smoke: a relaunch did not resume")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_sharded_lm(smi, single):
+    """Phase 12: sharded LM training and decode on gloo ranks sharing the
+    card; ``single`` is phase 11's fp32 (losses, grad norms)."""
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"[time] phase 12 {part}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    _sharded_full(smi, single)
+    lap("(a) and (c)")
+    _sharded_configs(smi)
+    lap("(b)")
+    _sharded_launcher(smi)
     lap("(d)")
 
 
@@ -2794,8 +3033,10 @@ def main() -> int:
     lap("phase 9 (invariant audit, peak device memory)")
     probe_launches, probe_rec = phase_lm(smi)
     lap("phase 10 (LM serving and the ridge probe)")
-    phase_train(smi)
+    single = phase_train(smi)
     lap("phase 11 (LM training)")
+    phase_sharded_lm(smi, single)
+    lap("phase 12 (sharded LM training and decode)")
     for r in paper_rows:
         if r["name"] == "sjlt (B = 1)":
             r["launches"] += probe_launches["_sjlt_kernel"]

@@ -22,6 +22,7 @@ import torch
 
 from .core.quadratic import Quadratic
 from .device import resolve_device
+from .dist.sharding import from_partition_names, to_partition_names
 from .models.transformer import Transformer
 from .train.optimizer import OptState
 
@@ -166,12 +167,15 @@ def opt_state_from_numpy(state_np, model: Transformer, *, device=None) -> OptSta
                     step=_tensor(state_np[2], torch.int32, dev))
 
 
-def train_tree(model: Transformer, state: OptState) -> tuple:
+def train_tree(model, state: OptState) -> tuple:
     """The training state as the reference checkpoints it, ``(params,
     OptState)`` in its tree layout: ``ft.CheckpointManager`` writes its
     leaves under the reference's paths (``0/embed``, ``1/.mu/embed``,
-    ``1/.step``), so either package restores the other's directory."""
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    ``1/.step``), so either package restores the other's directory.
+    ``model`` is a ``Transformer`` or its ``{name: tensor}`` map (a sharded
+    run's gathered parameters)."""
+    named = model.named_parameters() if isinstance(model, Transformer) else model.items()
+    params = {k: p.detach() for k, p in named}
     return to_ref_tree(params), OptState(to_ref_tree(state.mu), to_ref_tree(state.nu),
                                          state.step)
 
@@ -216,6 +220,68 @@ def model_from_numpy(params_np: dict, cfg, *, device=None) -> Transformer:
         raise ValueError(f"the port's model takes {total} of the reference's "
                          f"{count(params_np)} numbers")
     return model
+
+
+def _spec_map(fn, tree):
+    """``fn`` over a tree of dicts and lists whose leaves are tuples (a
+    placement tuple, or a ``P(...)``'s entries)."""
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_spec_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def placements_from_specs(specs, mesh):
+    """A tree of the reference's ``PartitionSpec`` entries, each given as
+    ``tuple(P)`` (None, an axis name or a tuple of names per tensor axis),
+    as placement tuples over ``mesh``."""
+    return _spec_map(lambda e: from_partition_names(e, mesh), specs)
+
+
+def specs_from_placements(placements, mesh, ndims):
+    """``placements_from_specs``'s inverse: each placement tuple as
+    ``tuple(P)`` of its leaf's ``ndims`` (a tree of ints) entries."""
+    flat = []
+    _spec_map(flat.append, ndims)
+    it = iter(flat)
+    return _spec_map(lambda pl: to_partition_names(pl, mesh, next(it)), placements)
+
+
+def _shape_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _shape_leaves(v, path + (k,))
+    else:
+        yield path, tuple(tree.shape)
+
+
+def layer_shapes(tree: dict) -> dict[str, tuple]:
+    """The port's per-layer parameter shapes, ``{name: shape}``, of the
+    reference's stacked tree (arrays or shape structs): a stacked leaf's
+    leading axis is the layer index (``_ref_path``'s inverse)."""
+    out = {}
+    for parts, shape in _shape_leaves(tree):
+        if parts[0] == "blocks":
+            for j in range(shape[0]):
+                out[".".join(parts[:2] + (str(j),) + parts[2:])] = shape[1:]
+        elif parts[0] == "enc_blocks":
+            for j in range(shape[0]):
+                out[".".join(parts[:1] + (str(j),) + parts[1:])] = shape[1:]
+        else:
+            out[".".join(parts)] = shape
+    return out
+
+
+def cache_layer_shapes(cache: dict) -> dict:
+    """The port's cache layout of shapes (``{"blocks": {name: [one dict a
+    layer]}, "rem": {name: dict}}``) of the reference's stacked cache."""
+    def shapes(c):
+        return {leaf: tuple(v.shape) for leaf, v in c.items()}
+    return {"blocks": {name: [{leaf: tuple(v.shape[1:]) for leaf, v in c.items()}
+                              for _ in range(next(iter(c.values())).shape[0])]
+                       for name, c in cache["blocks"].items()},
+            "rem": {name: shapes(c) for name, c in cache["rem"].items()}}
 
 
 def cache_to_numpy(cache: dict) -> dict:

@@ -97,7 +97,8 @@ def is_lead(mesh) -> bool:
     return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
 
 
-def _mesh_device(mesh) -> torch.device:
+def mesh_device(mesh) -> torch.device:
+    """The device a rank of ``mesh`` computes on: its current card, or the CPU."""
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -119,7 +120,7 @@ def host_verdict(mesh, *, stop: bool, expired: bool) -> tuple[bool, bool]:
     rank's alone (``is_lead``: only its clock counts, the others send 0).
     Every rank must call it at the same point, on replicated control flow."""
     flags = torch.tensor([int(bool(stop)), int(bool(expired) and is_lead(mesh))],
-                         dtype=torch.int32, device=_mesh_device(mesh))
+                         dtype=torch.int32, device=mesh_device(mesh))
     stop_all, expired_all = _all_reduce_mesh(flags, mesh, dist.ReduceOp.MAX).tolist()
     return bool(stop_all), bool(expired_all)
 
@@ -139,7 +140,7 @@ def lead_values(mesh, values) -> list[float]:
     from here, so every rank dispatches on the lead rank's clock."""
     seq = [float(v) for v in (values if isinstance(values, (list, tuple)) else [values])]
     t = torch.tensor(seq if is_lead(mesh) else [0.0] * len(seq), dtype=torch.float64,
-                     device=_mesh_device(mesh))
+                     device=mesh_device(mesh))
     return _all_reduce_mesh(t, mesh, dist.ReduceOp.SUM).tolist()
 
 

@@ -69,22 +69,26 @@ def global_norm(grads) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, gn: torch.Tensor | None = None) -> torch.Tensor:
     """Scale a list of fp32 tensors in place by min(1, max_norm / ‖g‖);
-    returns ‖g‖ before the scaling."""
-    gn = global_norm(grads)
+    returns ‖g‖ before the scaling. ``gn`` is ‖g‖ when the list is one
+    rank's shards of the gradient (its norm is the whole gradient's)."""
+    gn = global_norm(grads) if gn is None else gn
     limit = torch.tensor(max_norm, dtype=torch.float32, device=gn.device)
     torch._foreach_mul_(grads, torch.clamp(limit / torch.clamp(gn, min=1e-12), max=1.0))
     return gn
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads: dict, state: OptState):
+def adamw_update(cfg: AdamWConfig, params, grads: dict, state: OptState, *,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW step; returns (params, new_state, {"grad_norm", "lr"}).
 
     ``params`` (a module or a {name: tensor} map) and the state's moments
     are updated in place; fp32 ``grads`` are scaled in place when clipping
-    applies (the norm in the metrics is the norm before it)."""
+    applies (the norm in the metrics is the norm before it). A sharded step
+    passes its shards with ``grad_norm``, the whole gradient's norm: the
+    update is elementwise, so each shard's is the full update's block."""
     named = _named(params)
     names = list(named)
     p = [named[k] for k in names]
@@ -93,9 +97,9 @@ def adamw_update(cfg: AdamWConfig, params, grads: dict, state: OptState):
         raise ValueError("adamw_update takes fp32 parameters and grads (the models keep "
                          "fp32 parameters and cast them at use)")
     if cfg.grad_clip and cfg.grad_clip > 0:
-        gn = clip_by_global_norm(g, cfg.grad_clip)
+        gn = clip_by_global_norm(g, cfg.grad_clip, grad_norm)
     else:
-        gn = global_norm(g)
+        gn = global_norm(g) if grad_norm is None else grad_norm
 
     step = state.step + 1
     lr = lr_schedule(cfg, step)

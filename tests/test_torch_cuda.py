@@ -844,3 +844,44 @@ def test_train_step_on_card_matches_cpu(dev, arch):
     (l1, n1, g1), (l2, n2, g2) = out
     assert abs(l1 - l2) <= 1e-4 * abs(l2) and abs(n1 - n2) <= 1e-4 * abs(n2)
     assert float((g1 - g2).abs().max()) <= 1e-3 * float(g2.abs().max())
+
+
+def test_sharded_train_step_on_two_gloo_ranks_matches_cpu(dev):
+    """One fp32 step of qwen2-0.5b reduced on 2 gloo ranks sharing the card
+    (mesh (2, 1), fsdp, the batch split over the data ranks, 2
+    microbatches, a ragged mask) against the single-device step on the CPU
+    from the same parameters: loss and grad norm within 1e-4, every grad
+    within 1e-3 of max |g| (matmuls summed in other orders)."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainConfig, init_opt_state, make_train_step
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = bridge.model_to_numpy(init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(3), device=dev, max_seq=32))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (4, 17))
+    mask = np.ones((4, 16), np.float32)
+    mask[0, :3], mask[3, 5:] = 0.0, 0.0
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    res = run_ranks("repro_torch.launch.sharded_lm:run_tasks", 2, {"tasks": [(
+        "step", "train", dict(arch="qwen2-0.5b", params=params, model=1, fsdp=True,
+                              nmb=2, opt=opt, batch=batch, steps=1))]},
+        backend="gloo", device="cuda", timeout=600)
+    cpu = bridge.model_from_numpy(params, cfg, device="cpu")
+    _, _, m = make_train_step(cfg, TrainConfig(opt=AdamWConfig(**opt), num_microbatches=2,
+                                               compute_dtype=torch.float32))(
+        cpu, init_opt_state(cpu), device_batch(batch, torch.device("cpu")))
+    want = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    for r in res:
+        got = r["step"]
+        assert got["metrics"][0]["loss"] == pytest.approx(float(m["loss"]), rel=1e-4)
+        assert got["metrics"][0]["grad_norm"] == pytest.approx(float(m["grad_norm"]), rel=1e-4)
+        g = torch.cat([got["grads"][k].reshape(-1) for k, _ in cpu.named_parameters()])
+        assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -117,3 +117,20 @@ def test_spawned_ranks_import_no_jax():
                     {"tasks": [("imports", "imports", {})]}, device="cpu", timeout=300)
     assert out == [{"rank": 0, "imports": [],
                     "launches": {"imports": dict.fromkeys(BODY_LAUNCHES, 0)}}]
+
+
+def test_sharded_lm_ranks_import_no_jax():
+    """The rank programs of sharded LM training and decode
+    (``launch.sharded_lm``, and ``launch.train``'s ``--mesh`` ranks) load no
+    JAX and nothing of the reference after a train step and a decode."""
+    from repro_torch.launch.mesh import run_ranks
+
+    batch = {"tokens": [[1, 2, 3, 4]] * 2, "labels": [[2, 3, 4, 5]] * 2, "mask": [[1.0] * 4] * 2}
+    out = run_ranks("repro_torch.launch.sharded_lm:run_tasks", 1, {"tasks": [
+        ("train", "train", dict(arch="qwen2-0.5b", seed=0, max_seq=8, model=1, fsdp=False,
+                                nmb=1, opt={}, batch=batch, steps=1,
+                                tensors=False)),
+        ("decode", "decode", dict(arch="qwen2-0.5b", seed=0, max_seq=8, model=1,
+                                  prompt=[[1, 2, 3]], new=2, greedy=False)),
+        ("imports", "imports", {})]}, device="cpu", timeout=300)
+    assert out[0]["imports"] == []
