@@ -212,7 +212,25 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    steps then a relaunch to 15, and a SIGTERM to rank 2 after step 5's log
    line (every rank exits 75 having committed one step) then a relaunch to
    15, every checkpointed leaf bitwise the uninterrupted 15 steps';
-13. summary: one ``{"kernels": [...]}`` line, then the device line last.
+13. the quickstart leg and the model dry-run (``launch.quickstart``,
+   ``launch.dryrun``, ``analysis.report``): (a) ``examples/quickstart.py``'s
+   sizes on the card: the ridge leg (n = 8192, d = 1024, ν = 1e-2, the
+   0.99^i spectrum) with its direct and adaptive PCG/SJLT answers within
+   phase 8's energy-norm gate of an fp64 direct solve, CG's rel_err
+   printed (it has no stop, as in the reference), m_final ≤ 2d, printed
+   beside d_e, the B = 1 SJLT (Pallas row 5) launched; the logistic leg
+   (B = 8, n = 2048, d = 64, m_max = 128, ν = 0.3) every answer within 1e-3
+   of an fp64 IRLS, all converged, the weighted fp32 Gaussian leg (Pallas
+   row 2) launched and held against its plain version at the Newton
+   systems' shape; each solver's ms (CUDA events), each leg run twice (a
+   first call and a repeat); launch counts set to 0 just before each
+   leg's two runs and read just after; (b) on the host, qwen2-0.5b
+   × every shape traced on the 16×16 fake mesh (ok, or skipped by
+   ``skip_reason``), then phase 12 (a)'s configuration on a fake (2, 2)
+   mesh, its per-rank argument bytes beside phase 12's measured placed
+   state and its arguments + temp beside phase 12's measured warm-step
+   peak (printed, not gated), and the report's table of these records;
+14. summary: one ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -2864,6 +2882,7 @@ def _sharded_full(smi, single):
           + " ".join(f"{v:.1f}" for v in d["single_ms"]) + f" ({smi})")
     if not (close and same_ids and kept):
         raise SystemExit("chip_smoke: the sharded decode disagrees with the single-device one")
+    return res[0]["train"]["placed_bytes"], res[0]["train"]["peak"]
 
 
 def _sharded_configs(smi):
@@ -2957,7 +2976,8 @@ def _sharded_launcher(smi):
 
 def phase_sharded_lm(smi, single):
     """Phase 12: sharded LM training and decode on gloo ranks sharing the
-    card; ``single`` is phase 11's fp32 (losses, grad norms)."""
+    card; ``single`` is phase 11's fp32 (losses, grad norms). Returns rank
+    0's placed-state bytes and warm-step peak of (a)."""
     clock = [time.perf_counter()]
 
     def lap(part):
@@ -2965,12 +2985,182 @@ def phase_sharded_lm(smi, single):
         print(f"[time] phase 12 {part}: {now - clock[0]:.1f} s")
         clock[0] = now
 
-    _sharded_full(smi, single)
+    measured = _sharded_full(smi, single)
     lap("(a) and (c)")
     _sharded_configs(smi)
     lap("(b)")
     _sharded_launcher(smi)
     lap("(d)")
+    return measured
+
+
+# phase 13 (a): the quickstart leg (launch/quickstart.py) at the example's
+# sizes; GLM answers against the port's fp64 IRLS, relative (PERF.md §2)
+QS_GLM_REL_TOL = 1e-3
+
+
+def _quickstart(smi):
+    """Phase 13 (a); returns the launches per kernels-line row and the
+    weighted Gaussian's measurement at the Newton systems' shape."""
+    import torch
+
+    from repro_torch.core import adaptive_padded, irls_reference
+    from repro_torch.core.objectives import synthetic_logistic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gaussian_gram import gaussian_s_dense, gaussian_sa_ref
+    from repro_torch.launch import quickstart as qs
+
+    dev = torch.device("cuda")
+    n, d, nu = qs.RIDGE["full"]
+    A, y, sv = qs.ridge_problem(n, d, generator=torch.Generator(device=dev).manual_seed(
+        qs.DATA_SEEDS["ridge"]))
+    H64 = A.double().T @ A.double() + nu ** 2 * torch.eye(d, dtype=torch.float64, device=dev)
+    x64 = torch.linalg.solve(H64, A.double().T @ y.double())
+    ev = torch.linalg.eigvalsh(H64)
+    kappa = float(ev[-1] / ev[0])
+
+    def h_err(x):
+        e = x.double() - x64
+        return float(torch.sqrt((e @ H64 @ e) / (x64 @ H64 @ x64)))
+
+    # the example's calls twice, a first call and a repeat (alone in a
+    # process the first includes cuSOLVER's first factorization, as the
+    # example's first call includes its compile); both are the path and
+    # both count
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    runs = [qs.ridge_solves(A, y, nu, sv, device=dev) for _ in ("first", "repeat")]
+    torch.cuda.synchronize()
+    ridge = {k: v for k, v in ops.BODY_LAUNCHES.items() if v}
+    ok = True
+    for tag, r in zip(("first", "repeat"), runs):
+        errs = {"direct": (h_err(r["x_star"]), 1), "adaptive PCG": (h_err(r["x"]), r["iters"])}
+        for name, (err, k) in errs.items():
+            gate = max(SOLVE_REL_TOL, FP32_UNIT * kappa * max(k, 1) ** 0.5)
+            ok = ok and math.isfinite(err) and err <= gate
+            print(f"[quickstart] ridge (n={n}, d={d}, ν={nu:g}) {tag} {name}: error {err:.3e} "
+                  f"in the H-norm of the fp64 solve (gate {gate:.3e}, κ(H) {kappa:.3e})")
+        print(f"[quickstart] ridge, {tag}: direct {r['direct_ms']:.2f} ms, CG ({qs.CG_ITERS} "
+              f"iterations) {r['cg_ms']:.2f} ms rel_err {r['cg_rel_err']:.3e} (H-norm "
+              f"{h_err(r['x_cg']):.3e}; not gated), adaptive PCG/SJLT "
+              f"{r['adaptive_ms']:.2f} ms rel_err {r['rel_err']:.3e}, {r['iters']} iterations, "
+              f"{r['doublings']} doublings, m_final {r['m_final']} (2d {2 * d}, d_e "
+              f"{r['d_e']:.1f}, m_final/d_e {r['m_final'] / r['d_e']:.2f}); ms are CUDA events "
+              f"around each call ({smi})")
+    print(f"[quickstart] ridge: launches over both runs {ridge}")
+    if not ok or max(r["m_final"] for r in runs) > 2 * d or ridge.get("_sjlt_kernel", 0) <= 0:
+        raise SystemExit("chip_smoke: the quickstart's ridge leg missed its gate, its m_final "
+                         "exceeds 2d, or it never launched the B = 1 SJLT")
+    del H64
+
+    B, n, d, m_max = qs.LOGISTIC["full"]
+    A, Y = synthetic_logistic_batch(torch.Generator(device=dev).manual_seed(
+        qs.DATA_SEEDS["logistic"]), B, n, d)
+    x64 = irls_reference("logistic", A.double(), Y.double(), qs.LOGISTIC_NU, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    runs = [qs.logistic_solve(A, Y, qs.LOGISTIC_NU, m_max, device=dev)
+            for _ in ("first", "repeat")]
+    torch.cuda.synchronize()
+    legs = {k: v for k, v in ops.LAUNCHES.items() if v}
+    bodies = {k: v for k, v in ops.BODY_LAUNCHES.items() if v}
+    worst = 0.0
+    for tag, g in zip(("first", "repeat"), runs):
+        rel = float(((g["x"].double() - x64).norm(dim=1) / x64.norm(dim=1)).max())
+        worst = max(worst, rel) if math.isfinite(rel) else math.inf
+        print(f"[quickstart] logistic (B={B}, n={n}, d={d}, m_max={m_max}, "
+              f"ν={qs.LOGISTIC_NU}), {tag}: sketched Newton {g['newton_ms']:.2f} ms (CUDA "
+              f"events), worst error to the fp64 IRLS {rel:.3e} (gate {QS_GLM_REL_TOL:g}), "
+              f"converged {g['converged']}/{B}, outer iterations {g['outer_min']}-"
+              f"{g['outer_max']}, max decrement {g['max_decrement']:.3e}, problem 0's m "
+              f"trajectory {g['m_trajectory']} ({smi})")
+    print(f"[quickstart] logistic: launches over both runs {legs}, per Pallas body {bodies}")
+    weighted = ops.leg("gaussian_sa", "fp32", weighted=True)
+    g = runs[-1]
+    if not (worst <= QS_GLM_REL_TOL and all(r["converged"] == B for r in runs)
+            and legs.get(weighted, 0) > 0):
+        raise SystemExit("chip_smoke: the quickstart's logistic leg missed its gate or never "
+                         "launched the weighted Gaussian leg")
+    # the weighted leg at the Newton systems' shape, on their final weights
+    p = torch.sigmoid(torch.einsum("bnd,bd->bn", A, g["x"]))
+    w = (p * (1 - p)).contiguous()
+    seeds = adaptive_padded.batch_seeds(1, B, dev)
+    S_w = gaussian_s_dense(seeds, m_max, n) * torch.sqrt(w)[:, None, :]
+    rec = _measure(f"gaussian_sa.weighted at the quickstart's Newton systems (B={B}, n={n}, "
+                   f"d={d}, m={m_max})", lambda: ops.gaussian_sa(A, seeds, m_max, row_weights=w),
+                   lambda: gaussian_sa_ref(A, seeds, m_max, scale=torch.sqrt(w)),
+                   gauss_sa_terms(B, n, d, m_max, scaled=True), GAUSSIAN_REL_TOL,
+                   library=lambda: torch.bmm(S_w, A))
+    return {"gaussian_sa.weighted": legs[weighted], "sjlt (B = 1)": ridge["_sjlt_kernel"]}, rec
+
+
+def _model_dryrun(smi, phase12):
+    """Phase 13 (b): qwen2-0.5b × every shape on the single fake mesh, then
+    phase 12 (a)'s configuration on a fake (2, 2) mesh beside what phase 12
+    measured on the card, and the report's table of these records."""
+    from repro_torch.analysis.report import dryrun_table
+    from repro_torch.analysis.roofline import analyze_record
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config, skip_reason
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(TRAIN_ARCH)
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        t0 = time.perf_counter()
+        for shape in SHAPES:
+            rec = dryrun.run_cell(TRAIN_ARCH, shape, "single", out, force=True)
+            reason = skip_reason(cfg, shape)
+            if rec["status"] != ("skipped" if reason else "ok"):
+                raise SystemExit(f"chip_smoke: dry-run single/{TRAIN_ARCH}/{shape}: "
+                                 f"{rec.get('error', rec['status'])}")
+            if reason:
+                continue
+            mem, r = rec["memory"], analyze_record(rec)
+            print(f"[dryrun] single (256 ranks) {TRAIN_ARCH}/{shape}: per rank arguments "
+                  f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B, "
+                  f"{rec['hlo_dot_flops']:.4e} dot FLOPs, {rec['collectives']['total_bytes']:,} "
+                  f"B of collectives; data-sheet terms compute {r.compute_s:.4e} s, memory "
+                  f"{r.memory_s:.4e} s, collective {r.collective_s:.4e} s → {r.bottleneck}; "
+                  f"traced in {rec['trace_s']} s")
+        sweep_s = time.perf_counter() - t0
+        rec = dryrun.run_cell(TRAIN_ARCH, ShapeSpec("phase12_train", TRAIN_SEQ, TRAIN_B,
+                                                    "train"), "2x2", out,
+                              force_nmb=TRAIN_MB, mesh_shape=(2, 2), force=True)
+        if rec["status"] != "ok":
+            raise SystemExit(f"chip_smoke: dry-run of phase 12's configuration: {rec['error']}")
+        mem = rec["memory"]
+        placed, peak = phase12
+        print(f"[dryrun] phase 12 (a)'s configuration traced on a fake (2, 2) mesh "
+              f"({TRAIN_ARCH}, B={TRAIN_B} × S={TRAIN_SEQ}, {TRAIN_MB} microbatches, fsdp): "
+              f"arguments {mem['argument_size_in_bytes']:,} B a rank (parameters, moments, "
+              f"batch) beside phase 12's measured placed state {placed:,} B (parameters, "
+              f"moments and grads); arguments + temp "
+              f"{mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']:,} B beside phase "
+              f"12's measured warm-step peak {peak:,} B; {rec['collectives']['total_bytes']:,} "
+              f"B of collectives a step; printed, not gated ({smi})")
+        print(f"[dryrun] the single-mesh sweep of {TRAIN_ARCH} took {sweep_s:.1f} s on the "
+              f"host; the report's table of these records:")
+        print(dryrun_table(out))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_quickstart_dryrun(smi, phase12):
+    """Phase 13: the quickstart leg on the card (a) and the model dry-run on
+    the host (b). Returns (a)'s launches per kernels-line row and its
+    weighted Gaussian measurement."""
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"[time] phase 13 {part}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    launches, rec = _quickstart(smi)
+    lap("(a)")
+    _model_dryrun(smi, phase12)
+    lap("(b)")
+    return launches, rec
 
 
 def main() -> int:
@@ -3035,13 +3225,22 @@ def main() -> int:
     lap("phase 10 (LM serving and the ridge probe)")
     single = phase_train(smi)
     lap("phase 11 (LM training)")
-    phase_sharded_lm(smi, single)
+    phase12 = phase_sharded_lm(smi, single)
     lap("phase 12 (sharded LM training and decode)")
+    qs_launches, qs_rec = phase_quickstart_dryrun(smi, phase12)
+    lap("phase 13 (the quickstart leg and the model dry-run)")
     for r in paper_rows:
         if r["name"] == "sjlt (B = 1)":
-            r["launches"] += probe_launches["_sjlt_kernel"]
+            r["launches"] += probe_launches["_sjlt_kernel"] + qs_launches["sjlt (B = 1)"]
             r["variants"].append(probe_rec)
-            print(f"[probe] Pallas row 5 launches: {r['launches']} (phase 8 (a) and the probe)")
+            print(f"[probe] Pallas row 5 launches: {r['launches']} (phase 8 (a), the probe "
+                  f"and phase 13 (a))")
+    for r in rows:
+        if r["name"] == "gaussian_sa.weighted":
+            r["launches"] += qs_launches["gaussian_sa.weighted"]
+            r["variants"].append(qs_rec)
+            print(f"[quickstart] Pallas row 2 (fp32) launches: {r['launches']} (phases 4-7 "
+                  f"and phase 13 (a))")
     rows += paper_rows
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,13 @@ whether it read the watched tensor A.
   the storage itself is freed (a weak-reference finalizer on the storage,
   so a view that outlives the tensor keeps its bytes counted), so
   ``peak_live_bytes`` is the largest sum of the run's own tensors alive at
-  once: the CPU's counterpart of the card's peak above entry.
+  once: the CPU's counterpart of the card's peak above entry. Python's
+  cyclic collector does not run on its own during a run: the recorder
+  collects before the run and after every ``COLLECT_EVERY`` ops, so a
+  storage held by a reference cycle is freed at the same op in every run
+  and the peak does not depend on when the collector would have run (a
+  run of millions of ops, the dry-run's recurrences, would otherwise hold
+  their cycles' garbage, tens of GB, to its end).
 * Provenance: the innermost frame under ``src/repro_torch`` outside this
   module, taken only for the sites a rule can report (new storage, a
   factorization, a collective, a contraction).
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import sys
 import weakref
 from pathlib import Path
@@ -55,6 +62,7 @@ CONTRACTION_OPS = frozenset({
     "aten.addmv", "aten.dot", "aten.vdot", "aten._scaled_mm",
 })
 COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+COLLECT_EVERY = 1 << 16
 
 PORT_DIR = Path(__file__).resolve().parents[2]             # src/repro_torch
 ROOT_DIR = PORT_DIR.parents[1]                              # reports name paths from it
@@ -149,9 +157,10 @@ def _base(func) -> str:
 
 
 class _Recorder(TorchDispatchMode):
-    def __init__(self, watch: Iterable[torch.Tensor] = ()):
+    def __init__(self, watch: Iterable[torch.Tensor] = (), sink=None):
         super().__init__()
         self.sites: list[OpSite] = []
+        self.sink = sink
         self.watch = {_storage_key(t) for t in watch}
         self.trip_depth = 0
         self.trips = 0
@@ -159,6 +168,7 @@ class _Recorder(TorchDispatchMode):
         self.live: dict[int, int] = {}       # storage key → bytes, while alive
         self.live_bytes = 0
         self.peak_live_bytes = 0
+        self.n_ops = 0
 
     def _release(self, key: int) -> None:
         self.live_bytes -= self.live.pop(key, 0)
@@ -171,6 +181,9 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self.n_ops += 1
+        if self.n_ops % COLLECT_EVERY == 0:
+            gc.collect()
         out = func(*args, **kwargs)
         ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
@@ -182,16 +195,19 @@ class _Recorder(TorchDispatchMode):
         self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
         base = _base(func)
         reads_a = bool(self.watch) and not func.is_view and bool(in_keys & self.watch)
-        reportable = (any(new) or base in FACTORIZATION_OPS or base in CONTRACTION_OPS
-                      or base.split(".")[0] in COLLECTIVE_NAMESPACES)
-        self.sites.append(OpSite(
+        reportable = self.sink is None and (
+            any(new) or base in FACTORIZATION_OPS or base in CONTRACTION_OPS
+            or base.split(".")[0] in COLLECTIVE_NAMESPACES)
+        site = OpSite(
             op=str(func), base=base,
             in_shapes=tuple(tuple(t.shape) for t in ins),
             in_dtypes=tuple(t.dtype for t in ins),
             out_shapes=tuple(tuple(t.shape) for t in outs),
             out_dtypes=tuple(t.dtype for t in outs),
             new=new, in_trip=self.trip_depth > 0, reads_a=reads_a,
-            provenance=provenance(str(func)) if reportable else ""))
+            provenance=provenance(str(func)) if reportable else "")
+        if self.sink is None or self.sink(site):
+            self.sites.append(site)
         return out
 
 
@@ -230,16 +246,26 @@ def _marked_trips(rec: _Recorder):
 
 
 def record(fn: Callable[[], object], watch: Iterable[torch.Tensor] = (),
-           device="cpu") -> OpTrace:
+           device="cpu", *, sink: Callable[[OpSite], bool] | None = None) -> OpTrace:
     """Run ``fn()`` (on ``device``) under the recorder and return its
     ``OpTrace``. ``watch`` holds A (or its shards): a non-view op that reads
-    its storage is a consumer of A (``count_a_consumers``)."""
+    its storage is a consumer of A (``count_a_consumers``). ``sink`` is
+    handed every site as it is made, and the trace keeps only the sites it
+    returns True for, with no provenance: a run of millions of ops (the
+    model dry-run's recurrences) keeps its tallies, not its sites."""
     from repro_torch.kernels import ops
 
     launches0, bodies0 = dict(ops.LAUNCHES), dict(ops.BODY_LAUNCHES)
-    rec = _Recorder(watch)
-    with _marked_trips(rec), rec:
-        result = fn()
+    rec = _Recorder(watch, sink)
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with _marked_trips(rec), rec:
+            result = fn()
+    finally:
+        if collecting:
+            gc.enable()
     return OpTrace(
         sites=rec.sites,
         launches={k: v - launches0[k] for k, v in ops.LAUNCHES.items()},

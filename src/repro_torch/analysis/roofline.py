@@ -13,8 +13,9 @@ bounds from them. ``solver_model_flops`` and ``SOLVER_SHAPES`` are the
 reference's analytic useful-work count, unchanged.
 
 The record-reading half reads the dry-run's records
-(``launch.dryrun_solver``, the reference's record layout) into the three
-per-device terms, each a data-sheet time, not a measurement:
+(``launch.dryrun_solver`` and ``launch.dryrun``, the reference's record
+layout) into the three per-device terms, each a data-sheet time, not a
+measurement:
 
     compute    = Σ_dtype FLOPs / the dtype's peak (fp32 67, bf16 989 TFLOP/s)
     memory     = bytes accessed / PEAK_BYTES
@@ -22,8 +23,10 @@ per-device terms, each a data-sheet time, not a measurement:
 
 The records are per rank, as the reference's per-device ones are, so the
 chip count cancels. ``mfu`` divides the useful work by the chips' bf16
-peak over the step's bound. The model cells' branch of ``model_flops_for``
-waits for the port of the reference's model configs.
+peak over the step's bound. The useful work of a model cell
+(``launch.dryrun``) is the reference's: 6·N_active·B·S for a train step,
+2·N_active·B·S for a prefill, 2·N_active·B for a decode step, with N_active
+from ``ModelConfig.active_param_count`` and B, S from ``configs.SHAPES``.
 """
 
 from __future__ import annotations
@@ -170,11 +173,23 @@ class Roofline:
 
 def model_flops_for(arch: str, shape: str) -> float:
     """Useful FLOPs of a dry-run record: analytic for the solver cells
-    (``solver_model_flops``). A model cell raises KeyError: its branch waits
-    for the port of the reference's model configs."""
+    (``solver_model_flops``), the module docstring's counts for the model
+    cells. An unknown arch or shape raises KeyError."""
     if arch.startswith("solver"):
         return solver_model_flops(arch, shape)
-    raise KeyError(f"no useful-FLOPs count for {arch!r}: the port has no model configs yet")
+    from repro_torch.configs import SHAPES, get_config
+
+    try:
+        cfg = get_config(arch)
+    except ModuleNotFoundError as e:
+        raise KeyError(arch) from e
+    spec = SHAPES[shape]
+    n_active = cfg.active_param_count()
+    if spec.step == "train":
+        return 6.0 * n_active * spec.global_batch * spec.seq_len
+    if spec.step == "prefill":
+        return 2.0 * n_active * spec.global_batch * spec.seq_len
+    return 2.0 * n_active * spec.global_batch   # decode: one token a sequence
 
 
 def analyze_record(rec: dict) -> Roofline | None:

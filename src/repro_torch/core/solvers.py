@@ -121,18 +121,30 @@ def pcg_step(q: Quadratic, P: SketchedPrecond, st: PCGState, rho: float = 0.0) -
 
 
 def cg_solve(q: Quadratic, x0: torch.Tensor, iters: int, tol: float = 0.0):
-    """Plain CG on Hx = b; returns (x, the ‖r‖² trace (iters,) or (iters, B))."""
+    """Plain CG on Hx = b; returns (x, the ‖r‖² trace (iters,) or (iters, B)).
+
+    A problem stops moving once its recursive ‖r‖² falls to eps²·‖r₀‖² (eps
+    of its dtype), and its trace repeats that value: the residual is then
+    below what the dtype resolves of the first, and the steps after it are
+    rounding. In fp32 they are worse than that. The squares of r's entries
+    leave the normal range and underflow, so β = ‖r_new‖²/‖r‖² becomes a
+    ratio of truncated sums and ‖r‖² climbs again by up to 40 orders of
+    magnitude. The reference has no such stop, and its recursive ‖r‖²
+    climbs too (from 5e-37 to 2e-8 on the quickstart's small problem)."""
     bt = q.batched
     r = q.b - q.hvp(x0)
     x, p, rs = x0, r, pdot(r, r, bt)
+    floor = torch.finfo(rs.dtype).eps ** 2 * rs
+    live = rs > floor
     trace = []
     for _ in range(iters):
         Hp = q.hvp(p)
-        alpha = _safe_div(rs, pdot(p, Hp, bt))
+        alpha = torch.where(live, _safe_div(rs, pdot(p, Hp, bt)), 0.0)
         x = x + pscale(alpha, bt) * p
         r = r - pscale(alpha, bt) * Hp
         rs_new = pdot(r, r, bt)
-        p = r + pscale(_safe_div(rs_new, rs), bt) * p
+        live = live & (rs_new > floor)
+        p = r + pscale(torch.where(live, _safe_div(rs_new, rs), 0.0), bt) * p
         rs = rs_new
         trace.append(rs_new)
     return x, torch.stack(trace)

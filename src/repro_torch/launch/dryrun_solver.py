@@ -36,8 +36,8 @@ allocated. The variants, with the reference's names:
 
 What the trace counts (the record says which numbers are analytic):
 
-* ``hlo_dot_flops``: the per-rank program's dot FLOPs,
-  ``torch.utils.flop_counter.FlopCounterMode`` (``analysis.flops``).
+* ``hlo_dot_flops``: the per-rank program's dot FLOPs, counted from the
+  op trace (``analysis.flops.dot_flops``).
   Factorizations, triangular solves and the SJLT's scatter-add are not
   dots; ``analytic_flops`` counts them (d³/3 for the Cholesky, d²·c per
   triangular solve, two per preconditioner solve, and the sketch).
@@ -51,6 +51,10 @@ What the trace counts (the record says which numbers are analytic):
   recorder runs under ``FakeTensorMode``).
 * ``bytes_accessed``: each computing op's tensor inputs and outputs (views
   excluded), the eager program's traffic with nothing fused.
+* ``memory``: the model records' fields, measured as they are
+  (``launch.dryrun.step_memory``): the phase's inputs (``phase_inputs``,
+  made before the trace) and outputs as local bytes, and the trace's peak
+  live bytes.
 
 Records go to ``<out>/<mesh>/solver__ridge-<variant>.json`` in the
 reference's layout; ``analysis.roofline.analyze_record`` reads them.
@@ -68,7 +72,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.analysis.collectives import collective_bytes_by_op
-from repro_torch.analysis.flops import dot_flops, dot_flops_by_dtype
+from repro_torch.analysis.flops import bytes_accessed, dot_flops, dot_flops_by_dtype
 from repro_torch.analysis.roofline import SOLVER_SHAPES, gauss_sa_terms, sjlt_terms
 
 VARIANTS = ("baseline", "2d", "2d-bf16", "flat", "flat-bf16", "gaussian")
@@ -76,10 +80,6 @@ MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 SHAPE = "probe_2m_8k"
 NU = 1e-1
-_VIEWS = frozenset({"aten.view", "aten._unsafe_view", "aten.permute", "aten.t",
-                    "aten.transpose", "aten.slice", "aten.select", "aten.expand",
-                    "aten.alias", "aten.unsqueeze", "aten.squeeze", "aten.as_strided",
-                    "aten.detach", "prim.device", "_c10d_functional.wait_tensor"})
 
 
 def _groups(mesh):
@@ -105,14 +105,29 @@ def per_rank_dims(variant: str, dims: dict, mesh) -> dict:
     return dict(K=K, M=M, n_l=dims["n"] // rows, d_l=d_l)
 
 
+def phase_inputs(variant: str, dims: dict, mesh) -> tuple:
+    """One rank's inputs of the phase (make them under ``FakeTensorMode``):
+    A's block, B = AᵀY (replicated), and the sketch's data, the Gaussian's
+    bf16 S block or the SJLT's int64 rows and fp32 signs."""
+    d, c, m = dims["d"], dims["c"], dims["m"]
+    pr = per_rank_dims(variant, dims, mesh)
+    n_l = pr["n_l"]
+    A = torch.empty((n_l, pr["d_l"]), dtype=torch.float32)
+    Y = torch.empty((d, c), dtype=torch.float32)
+    if variant == "gaussian":
+        return A, Y, torch.empty((m, n_l), dtype=torch.bfloat16)
+    return A, Y, torch.empty((n_l,), dtype=torch.int64), torch.empty((n_l,), dtype=torch.float32)
+
+
 def phase_program(variant: str, dims: dict, mesh):
-    """The per-rank program of one adaptive phase; returns a function of no
-    arguments that runs it on fake inputs (call it under ``FakeTensorMode``)."""
+    """The per-rank program of one adaptive phase: a function of
+    ``phase_inputs``' tensors that runs it (on fakes, under
+    ``FakeTensorMode``) and returns x and the last δ̃."""
     import torch.distributed._functional_collectives as funcol
 
-    n, d, c, m, iters = (dims[k] for k in ("n", "d", "c", "m", "pcg_iters"))
+    d, c, m, iters = (dims[k] for k in ("d", "c", "m", "pcg_iters"))
     pr = per_rank_dims(variant, dims, mesh)
-    n_l, d_l = pr["n_l"], pr["d_l"]
+    d_l = pr["d_l"]
     data_g, model_g, all_g = _groups(mesh)
     rows_g = all_g if variant.startswith("flat") else data_g
     mv = torch.bfloat16 if variant.endswith("bf16") else torch.float32
@@ -124,15 +139,12 @@ def phase_program(variant: str, dims: dict, mesh):
     def gather_cols(t):            # (rows, d/M) blocks → (rows, d), over the model axis
         return funcol.all_gather_tensor(t.T.contiguous(), 0, model_g).T
 
-    def program():
-        A = torch.empty((n_l, d_l), dtype=torch.float32)
-        Y = torch.empty((d, c), dtype=torch.float32)          # B = AᵀY, replicated
+    def program(A, Y, *sketch):
         if variant == "gaussian":
-            S = torch.empty((m, n_l), dtype=torch.bfloat16)
+            (S,) = sketch
             SA = reduce((S @ A.to(torch.bfloat16)).float() / math.sqrt(m), rows_g)
         else:
-            rows = torch.empty((n_l,), dtype=torch.int64)
-            signs = torch.empty((n_l,), dtype=torch.float32)
+            rows, signs = sketch
             SA = torch.zeros((m, d_l)).index_add_(0, rows, A * signs[:, None])
             SA = reduce(SA, rows_g)
             if two_d:
@@ -194,6 +206,7 @@ def trace_record(variant: str, mesh, mesh_name: str, dims: dict, shape: str = SH
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.analysis.audit import op_trace as ot
+    from repro_torch.launch.dryrun import step_memory
 
     pr = per_rank_dims(variant, dims, mesh)
     rec = {"arch": f"solver-ridge-{variant}", "shape": shape, "mesh": mesh_name,
@@ -201,7 +214,10 @@ def trace_record(variant: str, mesh, mesh_name: str, dims: dict, shape: str = SH
     t0 = time.perf_counter()
     program = phase_program(variant, dims, mesh)
     with FakeTensorMode():
-        dots, trace = dot_flops(lambda: ot.record(program))
+        args = phase_inputs(variant, dims, mesh)
+        trace = ot.record(lambda: program(*args))
+        memory = step_memory(args, trace)
+    dots = dot_flops(trace)
     dots_by_dtype = dot_flops_by_dtype(trace)
     extra = analytic_flops(variant, dims, mesh)
     by_dtype = dict(dots_by_dtype)
@@ -221,12 +237,9 @@ def trace_record(variant: str, mesh, mesh_name: str, dims: dict, shape: str = SH
         flops_by_dtype={k: float(v) for k, v in by_dtype.items()},
         analytic_flops=extra,
         sketch={"kernel": kernel, "analytic": True, "flops": sk_flops, "bytes": sk_bytes},
-        bytes_accessed=float(sum(
-            s.in_bytes() + sum(math.prod(sh) * dt.itemsize
-                               for sh, dt in zip(s.out_shapes, s.out_dtypes))
-            for s in trace.sites if s.base not in _VIEWS)),
+        bytes_accessed=float(bytes_accessed(trace.sites)),
         collectives=collective_bytes_by_op(trace), n_devices=mesh.size(),
-        per_rank=pr, memory={"allocated": 0})
+        per_rank=pr, memory=memory)
     return rec
 
 

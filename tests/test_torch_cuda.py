@@ -885,3 +885,66 @@ def test_sharded_train_step_on_two_gloo_ranks_matches_cpu(dev):
         assert got["metrics"][0]["grad_norm"] == pytest.approx(float(m["grad_norm"]), rel=1e-4)
         g = torch.cat([got["grads"][k].reshape(-1) for k, _ in cpu.named_parameters()])
         assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_quickstart_ridge_small_on_card_matches_cpu(dev):
+    """``launch.quickstart``'s ridge leg at its small size on the card and
+    on the CPU, inputs built on the CPU: the SJLT samples are the same
+    counter hash on both, so the same m_final and doublings, iterations
+    within ±2, x within 1e-4 of its scale; the B = 1 SJLT launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart as qs
+
+    n, d, nu = qs.RIDGE["small"]
+    A, y, sv = qs.ridge_problem(n, d, generator=torch.Generator().manual_seed(0))
+    cpu = qs.ridge_solves(A, y, nu, sv, device="cpu")
+    ops.reset_launches()
+    card = qs.ridge_solves(A.to(dev), y.to(dev), nu, sv.to(dev), device=dev)
+    assert ops.BODY_LAUNCHES["_sjlt_kernel"] > 0
+    assert (card["m_final"], card["doublings"]) == (cpu["m_final"], cpu["doublings"])
+    assert abs(card["iters"] - cpu["iters"]) <= 2
+    x = cpu["x"].abs().max()
+    assert float((card["x"].cpu() - cpu["x"]).abs().max()) <= 1e-4 * float(x)
+
+
+def test_quickstart_logistic_small_on_card_matches_cpu(dev):
+    """The sketched-Newton leg at its small size on the card and on the
+    CPU: the Gaussian sketch is a function of the seed on both, so the same
+    converged count, outer iterations and m trajectory, x within 1e-4
+    relative; the weighted fp32 Gaussian leg launched."""
+    import numpy as np
+
+    from repro_torch.core.objectives import synthetic_logistic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart as qs
+
+    B, n, d, m_max = qs.LOGISTIC["small"]
+    A, Y = synthetic_logistic_batch(torch.Generator().manual_seed(2), B, n, d)
+    cpu = qs.logistic_solve(A, Y, qs.LOGISTIC_NU, m_max, device="cpu")
+    ops.reset_launches()
+    card = qs.logistic_solve(A.to(dev), Y.to(dev), qs.LOGISTIC_NU, m_max, device=dev)
+    assert ops.LAUNCHES[ops.leg("gaussian_sa", "fp32", weighted=True)] > 0
+    assert card["converged"] == cpu["converged"] == B
+    assert torch.equal(card["stats"]["newton_iters"].cpu(), cpu["stats"]["newton_iters"])
+    assert np.array_equal(card["stats"]["m_trajectory"], cpu["stats"]["m_trajectory"])
+    rel = (card["x"].cpu() - cpu["x"]).norm(dim=1) / cpu["x"].norm(dim=1)
+    assert float(rel.max()) <= 1e-4
+
+
+def test_model_dryrun_allocates_nothing_on_the_card(dev):
+    """A dry-run cell traced in a process that has a card (qwen2-0.5b
+    reduced, a fake 2×2 mesh, each step kind) leaves
+    ``torch.cuda.memory_allocated`` where it was."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+
+    full = get_config("qwen2-0.5b")
+    reduced = {f.name: getattr(full.reduced(), f.name) for f in dataclasses.fields(full)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for step in ("train", "prefill", "decode"):
+        rec = dryrun.run_cell("qwen2-0.5b", ShapeSpec(f"{step}_small", 16, 8, step), "single",
+                              None, mesh_shape=(2, 2), cfg_overrides=reduced, force_nmb=2)
+        assert rec["status"] == "ok", rec.get("error")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

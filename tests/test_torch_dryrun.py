@@ -5,7 +5,7 @@ fake mesh (nothing allocated), at a reduced shape over a 4×4 and a 2×4×4
 mesh, and its dot FLOPs and collective bytes are held exactly (they are
 integers) to an analytic count of its per-rank dots and payloads, written
 here from the variants' definitions. The dtype split of the dots from the
-op recorder must sum to ``FlopCounterMode``'s count. The full-size
+op recorder must sum to the same count. The full-size
 ``probe_2m_8k`` cells, all six variants on the 16×16 and 2×16×16 meshes,
 must trace with status ``ok`` and read back through ``analyze_record``."""
 
@@ -59,7 +59,7 @@ def test_dot_flops_and_collectives_match_the_analytic_count(reduced, variant, me
     assert rec["collectives"]["total_bytes"] == coll
     assert sum(c["count"] for c in rec["collectives"]["by_op"].values()) == count
     assert rec["n_devices"] == math.prod(MESHES[mesh])
-    # the recorder's dtype split of the dots sums to FlopCounterMode's count
+    # the recorder's dtype split of the dots sums to the analytic count
     assert sum(rec["dot_flops_by_dtype"].values()) == dots
     low = "bfloat16" if variant.endswith("bf16") or variant == "gaussian" else None
     assert set(rec["dot_flops_by_dtype"]) == {"float32"} | ({low} if low else set())
@@ -106,8 +106,16 @@ def test_production_mesh_is_fake_and_torn_down():
 
 
 def test_model_cells_wait_for_the_model_configs():
-    with pytest.raises(KeyError, match="model configs"):
-        roofline.model_flops_for("qwen2-0.5b", "train_4k")
-    assert roofline.analyze_record({"status": "ok", "arch": "qwen2-0.5b", "shape": "x",
-                                    "mesh": "single", "n_devices": 1, "flops": 1.0,
-                                    "collectives": {"total_bytes": 0}}) is None
+    """The model configs have come: a model cell's useful FLOPs are the
+    reference's 6·N_active·B·S (``test_torch_model_dryrun.py`` holds every
+    cell to the reference's), and a record of an unknown shape or arch
+    still reads as None."""
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg, spec = get_config("qwen2-0.5b"), SHAPES["train_4k"]
+    assert roofline.model_flops_for("qwen2-0.5b", "train_4k") == (
+        6.0 * cfg.active_param_count() * spec.global_batch * spec.seq_len)
+    for arch, shape in (("qwen2-0.5b", "x"), ("no-such-arch", "train_4k")):
+        assert roofline.analyze_record({"status": "ok", "arch": arch, "shape": shape,
+                                        "mesh": "single", "n_devices": 1, "flops": 1.0,
+                                        "collectives": {"total_bytes": 0}}) is None
