@@ -49,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.device import check_fp32_matmul, require_on, resolve_device
 from repro_torch.kernels.precision import canonical_compute_dtype
 
@@ -360,16 +361,27 @@ def _trip(q, pre, st: PaddedState, hvp, *, method, max_iters, rho, tol,
 
 def _run_segment(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
                  trip_limit: int, *, method: str, max_iters: int, rho: float,
-                 tol, guards: bool) -> PaddedState:
-    """The adaptive loop, up to ``trip_limit`` trips in total."""
+                 tol, guards: bool, tally: dict | None = None) -> PaddedState:
+    """The adaptive loop, up to ``trip_limit`` trips in total; ``tally``'s
+    ``trips_run`` gains the trips dispatched, counted on the host."""
     hvp = _hvp_fn(q, pre.G_full, pre.mesh)
     top = pre.remap.shape[0] - 1
-    t0 = int(st.trips)
-    for k in range(t0, trip_limit):
-        if (k - t0) % CHECK_TRIPS == 0 and bool(st.done.all()):
-            break
-        st = _trip(q, pre, st, hvp, method=method, max_iters=max_iters,
-                   rho=rho, tol=tol, guards=guards, top=top)
+    ran = 0
+    with trace.span("engine.loop") as sp:
+        with trace.span("engine.host_read"):
+            t0 = int(st.trips)
+        for k in range(t0, trip_limit):
+            if (k - t0) % CHECK_TRIPS == 0:
+                with trace.span("engine.host_read"):
+                    done = bool(st.done.all())
+                if done:
+                    break
+            st = _trip(q, pre, st, hvp, method=method, max_iters=max_iters,
+                       rho=rho, tol=tol, guards=guards, top=top)
+            ran += 1
+        sp.set(trips=ran)
+    if tally is not None:
+        tally["trips_run"] += ran
     return st
 
 
@@ -446,18 +458,22 @@ def prepare_padded_solve(
     check_fp32_matmul()
     compute_dtype = canonical_compute_dtype(compute_dtype)
     seeds = batch_seeds(seeds, q.batch, dev)
-    if grams is None:
-        grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
-                                      compute_dtype=compute_dtype, mesh=mesh)
-    pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
-        q, grams, guards=guards)
-    if gram_full is None:
-        gram_full = _gram_precompute(q, gram_hvp, mesh)
-    pre = PaddedPrecompute(
-        pinvs=pinvs, remap=remap, any_valid=any_valid,
-        gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
-        G_full=gram_full, mesh=mesh)
-    return pre, _init_padded_state(q, pre, init_level, tol, x0=x0)
+    with trace.span("engine.prepare"):
+        if grams is None:
+            with trace.span("ladder.sketch"):
+                grams = _compute_ladder_grams(q, seeds, m_max=m_max, sketch=sketch,
+                                              compute_dtype=compute_dtype, mesh=mesh)
+        with trace.span("ladder.factor"):
+            pinvs, remap, any_valid, gram_poisoned, invalid_levels = _ladder_tables(
+                q, grams, guards=guards)
+        if gram_full is None:
+            with trace.span("engine.true_gram"):
+                gram_full = _gram_precompute(q, gram_hvp, mesh)
+        pre = PaddedPrecompute(
+            pinvs=pinvs, remap=remap, any_valid=any_valid,
+            gram_poisoned=gram_poisoned, invalid_levels=invalid_levels,
+            G_full=gram_full, mesh=mesh)
+        return pre, _init_padded_state(q, pre, init_level, tol, x0=x0)
 
 
 def padded_solve_segment(
@@ -472,15 +488,18 @@ def padded_solve_segment(
     tol: float = 1e-10,
     guards: bool = True,
     device=None,
+    tally: dict | None = None,
 ) -> PaddedState:
     """Advance the loop to ``trip_limit`` trips in total. The state carries
     everything across the boundary, so k-trip segments back to back are
-    bitwise the monolithic loop. ``st`` is not modified."""
+    bitwise the monolithic loop. ``st`` is not modified. ``tally``: a dict
+    whose int ``trips_run`` gains the trips this call dispatched."""
     if method not in PADDED_METHODS:
         raise ValueError(f"padded engine supports {PADDED_METHODS}, got {method!r}")
     require_on(resolve_device(device), x=st.x)
     return _run_segment(q, pre, st, int(trip_limit), method=method,
-                        max_iters=max_iters, rho=rho, tol=tol, guards=guards)
+                        max_iters=max_iters, rho=rho, tol=tol, guards=guards,
+                        tally=tally)
 
 
 def finalize_padded_solve(pre: PaddedPrecompute, st: PaddedState, *, m_max: int,
@@ -489,7 +508,8 @@ def finalize_padded_solve(pre: PaddedPrecompute, st: PaddedState, *, m_max: int,
     certificates (δ̃, m_final, level) describe the best finite iterate
     reached, which is what an honest DEADLINE_EXCEEDED answer returns."""
     require_on(resolve_device(device), x=st.x)
-    return _finalize(pre, st, m_max=m_max)
+    with trace.span("engine.finalize"):
+        return _finalize(pre, st, m_max=m_max)
 
 
 def reprecondition_padded(q: Quadratic, pre: PaddedPrecompute, st: PaddedState,
@@ -566,7 +586,9 @@ def padded_adaptive_solve_batched(
     Returns (x, stats): x (B, d) and per-problem stats tensors (m_final,
     iters, doublings, δ̃ ``dtilde``, ladder ``level``, ``status``,
     ``converged``, ``stalled``, ``invalid_levels``) plus the scalar loop
-    ``trips``.
+    ``trips`` (the trips the problems needed) and ``trips_run`` (an int: the
+    trips the host dispatched, the no-op ones after the last problem was
+    done included).
 
     ``grams`` / ``gram_full`` supply the λ-free level Grams (L, B, d, d) and
     the true Gram and skip the sketch pass; ``init_level`` (B,) starts each
@@ -585,10 +607,13 @@ def padded_adaptive_solve_batched(
         q, seeds, m_max=m_max, sketch=sketch, gram_hvp=gram_hvp,
         init_level=init_level, guards=guards, compute_dtype=compute_dtype,
         tol=tol, grams=grams, gram_full=gram_full, x0=x0, mesh=mesh, device=device)
+    tally = {"trips_run": 0}
     st = padded_solve_segment(q, pre, st, padded_trip_cap(m_max, max_iters),
                               method=method, max_iters=max_iters, rho=rho,
-                              tol=tol, guards=guards, device=device)
-    return finalize_padded_solve(pre, st, m_max=m_max, device=device)
+                              tol=tol, guards=guards, device=device, tally=tally)
+    x, stats = finalize_padded_solve(pre, st, m_max=m_max, device=device)
+    stats["trips_run"] = tally["trips_run"]
+    return x, stats
 
 
 def prepare_path_ladder(
@@ -664,7 +689,8 @@ def padded_path_solve_batched(
     and final ladder level; ``init_level`` seeds the first point.
 
     Returns ``(xs, stats)``: xs (P, B, d), the per-point stats stacked to
-    (P, B) (``trips`` to (P,)), and ``sketch_passes`` = 1."""
+    (P, B) (``trips`` to (P,)), ``trips_run`` summed over the path, and
+    ``sketch_passes`` = 1."""
     if not q.batched:
         raise ValueError("padded_path_solve_batched expects a batched Quadratic")
     dev = resolve_device(device)
@@ -686,7 +712,8 @@ def padded_path_solve_batched(
         per_point.append(stats)
         if warm_start:
             x_prev, lvl = x, stats["level"]
-    out = {k: torch.stack([s[k] for s in per_point]) for k in per_point[0]}
+    out = {k: torch.stack([s[k] for s in per_point]) for k in per_point[0] if k != "trips_run"}
+    out["trips_run"] = sum(s["trips_run"] for s in per_point)
     out["sketch_passes"] = 1
     return torch.stack(xs), out
 

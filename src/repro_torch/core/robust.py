@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 
 from .adaptive_padded import (
@@ -178,7 +179,8 @@ def segmented_padded_solve_batched(
 
     Extra stats: ``segments`` (segments run in this call), ``resumed``,
     ``deadline_hit``, and ``verdicts`` / ``verdict_s`` (the host verdicts a
-    sharded solve took and their seconds).
+    sharded solve took and their seconds); ``trips_run`` counts the trips
+    the segments dispatched.
 
     ``mesh``: q is this rank's row block (``core.distributed``), and every
     host decision reads replicated values. The loop state is replicated
@@ -266,9 +268,12 @@ def segmented_padded_solve_batched(
 
     deadline_hit = False
     verdicts, verdict_s = 0, 0.0
+    tally = {"trips_run": 0}
     while True:
-        trips_now = int(st.trips)
-        if bool(st.done.all()) or trips_now >= trip_budget:
+        with trace.span("engine.host_read"):
+            trips_now = int(st.trips)
+            finished = bool(st.done.all())
+        if finished or trips_now >= trip_budget:
             break
         stop = preempt is not None and bool(getattr(preempt, "should_stop", False))
         late = deadline_s is not None and time.perf_counter() - t0 >= deadline_s
@@ -287,7 +292,7 @@ def segmented_padded_solve_batched(
         limit = min(trip_budget, trips_now + int(segment_trips))
         st = padded_solve_segment(q, pre, st, limit, method=method,
                                   max_iters=max_iters, rho=rho, tol=tol,
-                                  guards=guards, device=dev)
+                                  guards=guards, device=dev, tally=tally)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seg += 1
@@ -308,7 +313,7 @@ def segmented_padded_solve_batched(
         status = torch.where(st.done, stats["status"], int(SolveStatus.DEADLINE_EXCEEDED))
         stats.update(status=status, stalled=status == int(SolveStatus.STALLED))
     stats.update(segments=seg_ran, resumed=resumed, deadline_hit=deadline_hit,
-                 verdicts=verdicts, verdict_s=verdict_s)
+                 verdicts=verdicts, verdict_s=verdict_s, trips_run=tally["trips_run"])
     return x, stats
 
 
@@ -348,8 +353,9 @@ def robust_padded_solve_batched(
     ``retries``, ``fell_back``, ``converged``, ``stalled``, and the engine
     certificates ``dtilde`` (NaN on fallen-back slots), ``m_final``,
     ``iters`` (summed over attempts), ``doublings``, ``level``,
-    ``invalid_levels``; ``trips`` and ``segments`` sum over all attempts,
-    and ``resumed`` / ``deadline_hit`` are the first attempt's.
+    ``invalid_levels``; ``trips``, ``trips_run`` (the trips dispatched, an
+    int) and ``segments`` sum over all attempts, and ``resumed`` /
+    ``deadline_hit`` are the first attempt's.
 
     Setting any of ``deadline_s``, ``segment_trips``, ``checkpoint``,
     ``preempt`` or ``on_segment`` routes attempts through
@@ -387,25 +393,28 @@ def robust_padded_solve_batched(
             (left,) = lead_values(mesh, left)
         return left
 
-    def solve(qq, ss, lvl, *, budget=None, **first):
+    def solve(qq, ss, lvl, attempt, *, budget=None, **first):
         kw = dict(m_max=m_max, method=method, sketch=sketch, max_iters=max_iters,
                   rho=rho, tol=tol, gram_hvp=gram_hvp, init_level=lvl, guards=True,
                   compute_dtype=compute_dtype, mesh=mesh, device=dev)
-        if not segmented:
-            return padded_adaptive_solve_batched(qq, ss, **kw, **first)
-        return segmented_padded_solve_batched(qq, ss, **kw, **first,
-                                              segment_trips=seg_trips,
-                                              deadline_s=budget,
-                                              checkpoint_every=checkpoint_every)
+        with trace.span("robust.attempt", attempt=attempt):
+            if not segmented:
+                return padded_adaptive_solve_batched(qq, ss, **kw, **first)
+            return segmented_padded_solve_batched(qq, ss, **kw, **first,
+                                                  segment_trips=seg_trips,
+                                                  deadline_s=budget,
+                                                  checkpoint_every=checkpoint_every)
 
     first = dict(grams=grams, gram_full=gram_full, x0=x0)
     if segmented:
         first.update(on_segment=on_segment, checkpoint=checkpoint, resume=resume,
                      preempt=preempt)
-    x, st_dev = solve(q, seeds, init_level, budget=remaining(), **first)
+    x, st_dev = solve(q, seeds, init_level, 0, budget=remaining(), **first)
     x = x.clone()
-    st = {k: st_dev[k].cpu().numpy().copy() for k in _STAT_KEYS}
-    trips = int(st_dev["trips"])
+    with trace.span("robust.to_host"):
+        st = {k: st_dev[k].cpu().numpy().copy() for k in _STAT_KEYS}
+        trips = int(st_dev["trips"])
+    trips_run = st_dev["trips_run"]
     segments = int(st_dev.get("segments", 0))
     resumed = bool(st_dev.get("resumed", False))
     deadline_hit = bool(st_dev.get("deadline_hit", False))
@@ -431,9 +440,12 @@ def robust_padded_solve_batched(
         idx = torch.as_tensor(pad, device=dev)
         q_sub = _gather_quadratic(q, idx, torch.as_tensor(~live, device=dev))
         x_sub, s_dev = solve(q_sub, fold_seeds(seeds[idx], attempt),
-                             torch.as_tensor(st["level"][pad], device=dev),
+                             torch.as_tensor(st["level"][pad], device=dev), attempt,
                              budget=budget)
-        sub = {k: s_dev[k].cpu().numpy() for k in _STAT_KEYS}
+        with trace.span("robust.to_host"):
+            sub = {k: s_dev[k].cpu().numpy() for k in _STAT_KEYS}
+            trips += int(s_dev["trips"])
+        trips_run += s_dev["trips_run"]
         take_g, take_j = [], []
         for j, g in enumerate(fidx):
             retries[g] = attempt
@@ -454,7 +466,6 @@ def robust_padded_solve_batched(
         if take_g:
             x[torch.as_tensor(take_g, device=dev)] = x_sub[
                 torch.as_tensor(take_j, device=dev)]
-        trips += int(s_dev["trips"])
         segments += int(s_dev.get("segments", 0))
 
     fidx = np.flatnonzero(failed)
@@ -467,11 +478,12 @@ def robust_padded_solve_batched(
 
             def reduce(G):
                 return all_reduce_sum(G.contiguous(), mesh)
-        x_fb = direct_solve(_gather_quadratic(q, g_idx), reduce=reduce)
-        finite = torch.isfinite(x_fb).all(-1).cpu().numpy()
-        if finite.any():
-            keep = torch.as_tensor(finite, device=dev)
-            x[g_idx[keep]] = x_fb[keep]
+        with trace.span("robust.fallback"):
+            x_fb = direct_solve(_gather_quadratic(q, g_idx), reduce=reduce)
+            finite = torch.isfinite(x_fb).all(-1).cpu().numpy()
+            if finite.any():
+                keep = torch.as_tensor(finite, device=dev)
+                x[g_idx[keep]] = x_fb[keep]
         for j, g in enumerate(fidx):
             if finite[j]:
                 st["status"][g] = int(SolveStatus.FELL_BACK)
@@ -483,7 +495,8 @@ def robust_padded_solve_batched(
         retries=torch.as_tensor(retries), fell_back=torch.as_tensor(fell_back),
         converged=torch.as_tensor(np.isin(st["status"], converged_codes)),
         stalled=torch.as_tensor(st["status"] == int(SolveStatus.STALLED)),
-        trips=trips, segments=segments, resumed=resumed, deadline_hit=deadline_hit)
+        trips=trips, trips_run=trips_run, segments=segments, resumed=resumed,
+        deadline_hit=deadline_hit)
     return x, stats
 
 
@@ -523,7 +536,7 @@ def robust_path_solve_batched(
 
     ``nus`` is (P,) shared or (P, B) per problem; ``q.nu`` is ignored.
     Returns ``(xs, stats)``: xs (P, B, d); the per-problem stats stacked to
-    (P, B); ``trips`` and ``segments`` summed over the path; and
+    (P, B); ``trips``, ``trips_run`` and ``segments`` summed over the path; and
     ``sketch_passes``, 1 for the path plus 1 per retry attempt."""
     if not q.batched:
         raise ValueError("robust_path_solve_batched expects a batched Quadratic")
@@ -554,6 +567,7 @@ def robust_path_solve_batched(
             x_prev, lvl = x, stats["level"].to(dev)
     out = {k: torch.stack([s[k] for s in per_point]) for k in _PATH_STAT_KEYS}
     out["trips"] = sum(int(s["trips"]) for s in per_point)
+    out["trips_run"] = sum(s["trips_run"] for s in per_point)
     out["segments"] = sum(int(s["segments"]) for s in per_point)
     out["sketch_passes"] = sketch_passes
     return torch.stack(xs), out

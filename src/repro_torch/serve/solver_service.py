@@ -96,6 +96,7 @@ from typing import Iterable, NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.adaptive_padded import doubling_ladder, prepare_path_ladder
 from repro_torch.core.level_grams import fold_seeds
 from repro_torch.core.newton import adaptive_newton_solve_batched
@@ -331,11 +332,14 @@ class SolverService:
         self._quarantined: dict = {}
         self.rejection_reasons: dict[int, str] = {}
         self.stats = {"requests": 0, "batches": 0, "padded_slots": 0,
-                      "solve_seconds": 0.0, "retries": 0, "fallbacks": 0,
+                      "retries": 0, "fallbacks": 0,
                       "rejected": 0, "deadline_exceeded": 0, "segments": 0,
                       "resumed_chunks": 0, "path_requests": 0,
                       "ladder_cache_hits": 0, "ladder_cache_misses": 0,
-                      "sketch_passes_saved": 0}
+                      "sketch_passes_saved": 0,
+                      # ridge and path chunks: the PCG trips the host
+                      # dispatched, and those the problems needed
+                      "trips_run": 0, "trips_needed": 0}
 
     def slot_utilization(self) -> float:
         """Fraction of solved batch slots that held a real request."""
@@ -365,23 +369,24 @@ class SolverService:
         request that runs out of time returns its best finite iterate, its
         real δ̃ and ``DEADLINE_EXCEEDED``; one whose budget is spent before
         its chunk starts returns x = 0 with no certificate."""
-        A, y, lam_diag = self._stage(A, y, lam_diag)
-        cls = self.bucket_for(*A.shape)     # shape errors always raise
-        nu, reason = self._validate(A, y, nu, lam_diag)
-        rid = self._new_id()
-        if reason is not None:
-            self._reject(rid, reason, RidgeSolution(
-                req_id=rid, x=torch.zeros(A.shape[1], device=self.device),
-                delta_tilde=float("nan"), m_final=0, iters=0, doublings=0,
-                shape_class=cls, batch_index=-1,
-                sketch=cls.sketch or self.sketch,
-                compute_dtype=cls.compute_dtype or self.compute_dtype,
-                status=SolveStatus.REJECTED.name, converged=False))
+        with trace.span("service.submit", req_id=self._next_id):
+            A, y, lam_diag = self._stage(A, y, lam_diag)
+            cls = self.bucket_for(*A.shape)     # shape errors always raise
+            nu, reason = self._validate(A, y, nu, lam_diag)
+            rid = self._new_id()
+            if reason is not None:
+                self._reject(rid, reason, RidgeSolution(
+                    req_id=rid, x=torch.zeros(A.shape[1], device=self.device),
+                    delta_tilde=float("nan"), m_final=0, iters=0, doublings=0,
+                    shape_class=cls, batch_index=-1,
+                    sketch=cls.sketch or self.sketch,
+                    compute_dtype=cls.compute_dtype or self.compute_dtype,
+                    status=SolveStatus.REJECTED.name, converged=False))
+                return rid
+            self._queues[cls].append(RidgeRequest(
+                req_id=rid, nu=nu, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
+                **self._rows_kept(cls, A, y, lam_diag)))
             return rid
-        self._queues[cls].append(RidgeRequest(
-            req_id=rid, nu=nu, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
-            **self._rows_kept(cls, A, y, lam_diag)))
-        return rid
 
     def submit_glm(self, A, y, nu, family: str = "logistic", lam_diag=None, *,
                    deadline_s: float | None = None) -> int:
@@ -393,24 +398,25 @@ class SolverService:
         rows, with no gradient and no Hessian weight. Admission checks and
         ``deadline_s`` are those of ``submit``; the budget binds between
         the Newton driver's outer steps."""
-        get_objective(family)              # an unknown family raises here
-        A, y, lam_diag = self._stage(A, y, lam_diag)
-        cls = self.bucket_for(*A.shape)
-        nu, reason = self._validate(A, y, nu, lam_diag)
-        rid = self._new_id()
-        if reason is not None:
-            self._reject(rid, reason, GLMSolution(
-                req_id=rid, x=torch.zeros(A.shape[1], device=self.device),
-                family=family, decrement=float("nan"), converged=False,
-                newton_iters=0, m_trajectory=(), m_final=0, inner_iters=0,
-                shape_class=cls, batch_index=-1, sketch=cls.sketch or self.sketch,
-                compute_dtype=cls.compute_dtype or self.compute_dtype,
-                status=SolveStatus.REJECTED.name))
+        with trace.span("service.submit", req_id=self._next_id):
+            get_objective(family)              # an unknown family raises here
+            A, y, lam_diag = self._stage(A, y, lam_diag)
+            cls = self.bucket_for(*A.shape)
+            nu, reason = self._validate(A, y, nu, lam_diag)
+            rid = self._new_id()
+            if reason is not None:
+                self._reject(rid, reason, GLMSolution(
+                    req_id=rid, x=torch.zeros(A.shape[1], device=self.device),
+                    family=family, decrement=float("nan"), converged=False,
+                    newton_iters=0, m_trajectory=(), m_final=0, inner_iters=0,
+                    shape_class=cls, batch_index=-1, sketch=cls.sketch or self.sketch,
+                    compute_dtype=cls.compute_dtype or self.compute_dtype,
+                    status=SolveStatus.REJECTED.name))
+                return rid
+            self._glm_queues.setdefault((cls, family), []).append(GLMRequest(
+                req_id=rid, A=A, y=y, nu=nu, family=family, lam_diag=lam_diag,
+                deadline=self._deadline(deadline_s)))
             return rid
-        self._glm_queues.setdefault((cls, family), []).append(GLMRequest(
-            req_id=rid, A=A, y=y, nu=nu, family=family, lam_diag=lam_diag,
-            deadline=self._deadline(deadline_s)))
-        return rid
 
     def submit_path(self, A, y, nus, lam_diag=None, *,
                     deadline_s: float | None = None) -> int:
@@ -422,38 +428,39 @@ class SolverService:
         length pack into one chunk even when the grids differ. Admission
         checks every ν of the grid. A ``deadline_s`` orders dispatch and
         expires the chunk before it starts; it does not bind mid-solve."""
-        A, y, lam_diag = self._stage(A, y, lam_diag)
-        cls = self.bucket_for(*A.shape)
-        nus = tuple(float(v) for v in torch.as_tensor(nus, dtype=torch.float64).reshape(-1))
-        if not nus:
-            raise ValueError("submit_path needs a non-empty grid of ν")
-        reason = None
-        try:
-            for v in nus:
-                self._check_nu(v)
-        except ValueError as e:
-            reason = str(e)
-            if self.strict:
-                raise ValueError(f"request {self._next_id} rejected: {reason}") from e
-        if reason is None:
-            _, reason = self._validate(A, y, nus[0], lam_diag)
-        rid = self._new_id()
-        self.stats["path_requests"] += 1
-        if reason is not None:
-            zero = torch.zeros(A.shape[1], device=self.device)
-            self._reject(rid, reason, PathSolution(
-                req_id=rid, points=tuple(PathPoint(
-                    nu=v, x=zero, delta_tilde=float("nan"), m_final=0, iters=0,
-                    doublings=0, status=SolveStatus.REJECTED.name, converged=False)
-                    for v in nus),
-                shape_class=cls, batch_index=-1, sketch=cls.sketch or self.sketch,
-                compute_dtype=cls.compute_dtype or self.compute_dtype,
-                status=SolveStatus.REJECTED.name, converged=False, sketch_passes=0))
+        with trace.span("service.submit", req_id=self._next_id):
+            A, y, lam_diag = self._stage(A, y, lam_diag)
+            cls = self.bucket_for(*A.shape)
+            nus = tuple(float(v) for v in torch.as_tensor(nus, dtype=torch.float64).reshape(-1))
+            if not nus:
+                raise ValueError("submit_path needs a non-empty grid of ν")
+            reason = None
+            try:
+                for v in nus:
+                    self._check_nu(v)
+            except ValueError as e:
+                reason = str(e)
+                if self.strict:
+                    raise ValueError(f"request {self._next_id} rejected: {reason}") from e
+            if reason is None:
+                _, reason = self._validate(A, y, nus[0], lam_diag)
+            rid = self._new_id()
+            self.stats["path_requests"] += 1
+            if reason is not None:
+                zero = torch.zeros(A.shape[1], device=self.device)
+                self._reject(rid, reason, PathSolution(
+                    req_id=rid, points=tuple(PathPoint(
+                        nu=v, x=zero, delta_tilde=float("nan"), m_final=0, iters=0,
+                        doublings=0, status=SolveStatus.REJECTED.name, converged=False)
+                        for v in nus),
+                    shape_class=cls, batch_index=-1, sketch=cls.sketch or self.sketch,
+                    compute_dtype=cls.compute_dtype or self.compute_dtype,
+                    status=SolveStatus.REJECTED.name, converged=False, sketch_passes=0))
+                return rid
+            self._path_queues.setdefault((cls, len(nus)), []).append(PathRequest(
+                req_id=rid, nus=nus, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
+                **self._rows_kept(cls, A, y, lam_diag)))
             return rid
-        self._path_queues.setdefault((cls, len(nus)), []).append(PathRequest(
-            req_id=rid, nus=nus, lam_diag=lam_diag, deadline=self._deadline(deadline_s),
-            **self._rows_kept(cls, A, y, lam_diag)))
-        return rid
 
     def _rows_kept(self, cls: ShapeClass, A, y, lam_diag) -> dict:
         """The fields of a queued ridge or path request that hold its data:
@@ -575,19 +582,20 @@ class SolverService:
         """Pad each GLM request to the class shape and stack (A, y, ν, Λ);
         empty slots are all-zero problems (x = 0 is optimal, decrement 0, so
         the driver freezes them at its first step). Same seeds as ``_pack``."""
-        B, dev = self.batch_size, self.device
-        A = torch.zeros((B, cls.n, cls.d), device=dev)
-        y = torch.zeros((B, cls.n), device=dev)
-        nu = torch.ones(B, device=dev)
-        lam = torch.ones((B, cls.d), device=dev)
-        for i, r in enumerate(reqs):
-            ni, di = r.A.shape
-            A[i, :ni, :di] = r.A
-            y[i, :ni] = r.y
-            nu[i] = r.nu
-            if r.lam_diag is not None:
-                lam[i, :di] = r.lam_diag
-        return A, y, nu, lam, self._slot_seeds(self._pad_ids([r.req_id for r in reqs]))
+        with trace.span("service.pack"):
+            B, dev = self.batch_size, self.device
+            A = torch.zeros((B, cls.n, cls.d), device=dev)
+            y = torch.zeros((B, cls.n), device=dev)
+            nu = torch.ones(B, device=dev)
+            lam = torch.ones((B, cls.d), device=dev)
+            for i, r in enumerate(reqs):
+                ni, di = r.A.shape
+                A[i, :ni, :di] = r.A
+                y[i, :ni] = r.y
+                nu[i] = r.nu
+                if r.lam_diag is not None:
+                    lam[i, :di] = r.lam_diag
+            return A, y, nu, lam, self._slot_seeds(self._pad_ids([r.req_id for r in reqs]))
 
     # -- solving -----------------------------------------------------------
     def flush(self, deadline_s: float | None = None) -> dict:
@@ -603,53 +611,56 @@ class SolverService:
         budget is spent before dispatch expires. A ridge chunk's budget
         binds mid-solve through the segmented driver, a GLM chunk's between
         Newton steps; a path chunk's only before dispatch."""
-        if deadline_s is None:
-            deadline_s = self.flush_deadline_s
-        t0 = time.perf_counter()
-        out: dict = dict(self._quarantined)
-        self._quarantined = {}
-        sources = ([(cls, None, self._queues, cls) for cls in self.shape_classes]
-                   + [(cls, fam, self._glm_queues, (cls, fam))
-                      for cls, fam in list(self._glm_queues)]
-                   + [(cls, ("path", P), self._path_queues, (cls, P))
-                      for cls, P in list(self._path_queues)])
-        queues = []
-        for cls, kind, store, key in sources:
-            queues.append((cls, kind, store[key]))
-            store[key] = []
-        rel = self._relative_deadlines([r for _, _, q in queues for r in q], t0)
-        # (urgency, seq, cls, kind, chunk): kind None for ridge, the family
-        # name for GLM, ("path", P) for path; urgency in seconds from t0
-        chunks = []
-        for cls, kind, queue in queues:
-            queue.sort(key=lambda r: (r.req_id not in rel, rel.get(r.req_id, 0.0)))
-            for i in range(0, len(queue), self.batch_size):
-                chunk = queue[i: i + self.batch_size]
-                dl = [rel[r.req_id] for r in chunk if r.req_id in rel]
-                chunks.append((min(dl) if dl else None, len(chunks), cls, kind, chunk))
-        chunks.sort(key=lambda c: (c[0] is None, c[0] or 0.0, c[1]))
-        for chunk_deadline, _, cls, kind, chunk in chunks:
-            spent = time.perf_counter() - t0
-            budgets = []
-            if deadline_s is not None:
-                budgets.append(deadline_s - spent)
-            if chunk_deadline is not None:
-                budgets.append(chunk_deadline - spent)
-            budget = min(budgets) if budgets else None
-            expired = budget is not None and budget <= 0
-            if budget is not None and self.mesh is not None:
-                from repro_torch.core.distributed import host_verdict
+        with trace.span("service.flush"):
+            if deadline_s is None:
+                deadline_s = self.flush_deadline_s
+            t0 = time.perf_counter()
+            out: dict = dict(self._quarantined)
+            self._quarantined = {}
+            sources = ([(cls, None, self._queues, cls) for cls in self.shape_classes]
+                       + [(cls, fam, self._glm_queues, (cls, fam))
+                          for cls, fam in list(self._glm_queues)]
+                       + [(cls, ("path", P), self._path_queues, (cls, P))
+                          for cls, P in list(self._path_queues)])
+            queues = []
+            for cls, kind, store, key in sources:
+                queues.append((cls, kind, store[key]))
+                store[key] = []
+            rel = self._relative_deadlines([r for _, _, q in queues for r in q], t0)
+            # (urgency, seq, cls, kind, chunk): kind None for ridge, the family
+            # name for GLM, ("path", P) for path; urgency in seconds from t0
+            chunks = []
+            for cls, kind, queue in queues:
+                queue.sort(key=lambda r: (r.req_id not in rel, rel.get(r.req_id, 0.0)))
+                for i in range(0, len(queue), self.batch_size):
+                    chunk = queue[i: i + self.batch_size]
+                    dl = [rel[r.req_id] for r in chunk if r.req_id in rel]
+                    chunks.append((min(dl) if dl else None, len(chunks), cls, kind, chunk))
+            chunks.sort(key=lambda c: (c[0] is None, c[0] or 0.0, c[1]))
+            for chunk_deadline, _, cls, kind, chunk in chunks:
+                spent = time.perf_counter() - t0
+                budgets = []
+                if deadline_s is not None:
+                    budgets.append(deadline_s - spent)
+                if chunk_deadline is not None:
+                    budgets.append(chunk_deadline - spent)
+                budget = min(budgets) if budgets else None
+                expired = budget is not None and budget <= 0
+                if budget is not None and self.mesh is not None:
+                    from repro_torch.core.distributed import host_verdict
 
-                _, expired = host_verdict(self.mesh, stop=False, expired=expired)
-            if expired:
-                out.update(self._expire_chunk(cls, chunk, family=kind))
-            elif kind is None:
-                out.update(self._solve_chunk(cls, chunk, budget_s=budget))
-            elif isinstance(kind, tuple):
-                out.update(self._solve_path_chunk(cls, chunk))
-            else:
-                out.update(self._solve_glm_chunk(cls, kind, chunk, budget_s=budget))
-        return out
+                    _, expired = host_verdict(self.mesh, stop=False, expired=expired)
+                with trace.span("service.chunk", cls=cls, kind=kind,
+                                req_ids=[r.req_id for r in chunk]):
+                    if expired:
+                        out.update(self._expire_chunk(cls, chunk, family=kind))
+                    elif kind is None:
+                        out.update(self._solve_chunk(cls, chunk, budget_s=budget))
+                    elif isinstance(kind, tuple):
+                        out.update(self._solve_path_chunk(cls, chunk))
+                    else:
+                        out.update(self._solve_glm_chunk(cls, kind, chunk, budget_s=budget))
+            return out
 
     def _relative_deadlines(self, reqs, t0: float) -> dict[int, float]:
         """{req_id: seconds from the flush's start t0 to the request's
@@ -769,17 +780,18 @@ class SolverService:
         """``_pack``, and under the ladder cache the chunk's ladder with the
         slots keyed by fingerprint. Returns (q, seeds, grams, gram_full,
         skipped); grams and gram_full are None without the cache."""
-        if not self.ladder_cache:
-            return (*self._pack(cls, reqs), None, None, False)
-        fps = [r.fp or self._ladder_fingerprint(r.A, r.lam_diag, cls, sketch, cd)
-               for r in reqs]
-        q, seeds = self._pack(cls, reqs, slot_ids=[self._fp_slot_id(f) for f in fps])
-        return (q, seeds, *self._ladder_assets(cls, fps, q, seeds, sketch, cd))
+        with trace.span("service.pack"):
+            if not self.ladder_cache:
+                return (*self._pack(cls, reqs), None, None, False)
+            fps = [r.fp or self._ladder_fingerprint(r.A, r.lam_diag, cls, sketch, cd)
+                   for r in reqs]
+            q, seeds = self._pack(cls, reqs, slot_ids=[self._fp_slot_id(f) for f in fps])
+            return (q, seeds, *self._ladder_assets(cls, fps, q, seeds, sketch, cd))
 
-    def _finish_chunk(self, t0: float, n_reqs: int) -> None:
+    def _finish_chunk(self, n_reqs: int) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stats["solve_seconds"] += time.perf_counter() - t0
+            with trace.span("service.sync"):
+                torch.cuda.synchronize(self.device)
         self.stats["batches"] += 1
         self.stats["padded_slots"] += self.batch_size - n_reqs
 
@@ -797,37 +809,39 @@ class SolverService:
         nus = torch.ones((P, self.batch_size))
         for i, r in enumerate(reqs):
             nus[:, i] = torch.tensor(r.nus)
-        t0 = time.perf_counter()
         xs, stats = robust_path_solve_batched(
             q, seeds, nus.to(self.device), m_max=cls.m_max, method=self.method,
             sketch=sketch, max_iters=self.max_iters, rho=self.rho, tol=self.tol,
             max_retries=self.max_retries, fallback=self.fallback, compute_dtype=cd,
             grams=grams, gram_full=gfull, mesh=self.mesh, device=self.device)
-        self._finish_chunk(t0, len(reqs))
+        self._finish_chunk(len(reqs))
+        self.stats["trips_run"] += stats["trips_run"]
+        self.stats["trips_needed"] += stats["trips"]
         passes = int(stats["sketch_passes"]) - (1 if skipped else 0)
         out = {}
-        for i, r in enumerate(reqs):
-            di = r.A.shape[1]
-            pts = []
-            for p in range(P):
-                self.stats["retries"] += int(stats["retries"][p, i])
-                self.stats["fallbacks"] += int(stats["fell_back"][p, i])
-                pts.append(PathPoint(
-                    nu=r.nus[p], x=xs[p, i, :di],
-                    delta_tilde=float(stats["dtilde"][p, i]),
-                    m_final=int(stats["m_final"][p, i]),
-                    iters=int(stats["iters"][p, i]),
-                    doublings=int(stats["doublings"][p, i]),
-                    status=status_name(stats["status"][p, i]),
-                    converged=bool(stats["converged"][p, i]),
-                    retries=int(stats["retries"][p, i]),
-                    fell_back=bool(stats["fell_back"][p, i])))
-            bad = [pt for pt in pts if not pt.converged]
-            out[r.req_id] = PathSolution(
-                req_id=r.req_id, points=tuple(pts), shape_class=cls, batch_index=i,
-                sketch=sketch, compute_dtype=cd,
-                status=bad[0].status if bad else "OK", converged=not bad,
-                cache_hit=skipped, sketch_passes=passes)
+        with trace.span("service.answers"):
+            for i, r in enumerate(reqs):
+                di = r.A.shape[1]
+                pts = []
+                for p in range(P):
+                    self.stats["retries"] += int(stats["retries"][p, i])
+                    self.stats["fallbacks"] += int(stats["fell_back"][p, i])
+                    pts.append(PathPoint(
+                        nu=r.nus[p], x=xs[p, i, :di],
+                        delta_tilde=float(stats["dtilde"][p, i]),
+                        m_final=int(stats["m_final"][p, i]),
+                        iters=int(stats["iters"][p, i]),
+                        doublings=int(stats["doublings"][p, i]),
+                        status=status_name(stats["status"][p, i]),
+                        converged=bool(stats["converged"][p, i]),
+                        retries=int(stats["retries"][p, i]),
+                        fell_back=bool(stats["fell_back"][p, i])))
+                bad = [pt for pt in pts if not pt.converged]
+                out[r.req_id] = PathSolution(
+                    req_id=r.req_id, points=tuple(pts), shape_class=cls, batch_index=i,
+                    sketch=sketch, compute_dtype=cd,
+                    status=bad[0].status if bad else "OK", converged=not bad,
+                    cache_hit=skipped, sketch_passes=passes)
         return out
 
     def _solve_glm_chunk(self, cls: ShapeClass, family: str, reqs: list[GLMRequest],
@@ -835,31 +849,31 @@ class SolverService:
         A, y, nu, lam, seeds = self._pack_glm(cls, reqs)
         sketch = cls.sketch or self.sketch
         cd = cls.compute_dtype or self.compute_dtype
-        t0 = time.perf_counter()
         x, stats = adaptive_newton_solve_batched(
             family, A, y, nu, lam_diag=lam, seeds=seeds, m_max=cls.m_max,
             method=self.method, sketch=sketch, newton_iters=self.newton_iters,
             tol=self.newton_tol, inner_max_iters=self.max_iters, rho=self.rho,
             inner_tol=self.tol, compute_dtype=cd, deadline_s=budget_s,
             mesh=self.mesh, device=self.device)
-        self._finish_chunk(t0, len(reqs))
-        host = {k: v.cpu() for k, v in stats.items() if torch.is_tensor(v)}
-        m_traj = stats["m_trajectory"]                       # (T, B)
+        self._finish_chunk(len(reqs))
         out = {}
-        for i, r in enumerate(reqs):
-            if int(host["status"][i]) == int(SolveStatus.DEADLINE_EXCEEDED):
-                self.stats["deadline_exceeded"] += 1
-            out[r.req_id] = GLMSolution(
-                req_id=r.req_id, x=x[i, :r.A.shape[1]], family=family,
-                decrement=float(host["decrement"][i]),
-                converged=bool(host["converged"][i]),
-                newton_iters=int(host["newton_iters"][i]),
-                m_trajectory=tuple(int(m) for m in m_traj[:, i] if m > 0),
-                m_final=int(host["m_final"][i]),
-                inner_iters=int(host["inner_iters"][i]),
-                shape_class=cls, batch_index=i, sketch=sketch, compute_dtype=cd,
-                status=status_name(host["status"][i]),
-                stalled=bool(host["stalled"][i]))
+        with trace.span("service.answers"):
+            host = {k: v.cpu() for k, v in stats.items() if torch.is_tensor(v)}
+            m_traj = stats["m_trajectory"]                       # (T, B)
+            for i, r in enumerate(reqs):
+                if int(host["status"][i]) == int(SolveStatus.DEADLINE_EXCEEDED):
+                    self.stats["deadline_exceeded"] += 1
+                out[r.req_id] = GLMSolution(
+                    req_id=r.req_id, x=x[i, :r.A.shape[1]], family=family,
+                    decrement=float(host["decrement"][i]),
+                    converged=bool(host["converged"][i]),
+                    newton_iters=int(host["newton_iters"][i]),
+                    m_trajectory=tuple(int(m) for m in m_traj[:, i] if m > 0),
+                    m_final=int(host["m_final"][i]),
+                    inner_iters=int(host["inner_iters"][i]),
+                    shape_class=cls, batch_index=i, sketch=sketch, compute_dtype=cd,
+                    status=status_name(host["status"][i]),
+                    stalled=bool(host["stalled"][i]))
         return out
 
     def _solve_chunk(self, cls: ShapeClass, reqs: list[RidgeRequest],
@@ -874,36 +888,38 @@ class SolverService:
         if budget_s is not None or self.checkpoint_dir is not None or self.preempt is not None:
             seg = dict(deadline_s=budget_s, segment_trips=self.segment_trips,
                        checkpoint=self._chunk_checkpoint(cls, reqs), preempt=self.preempt)
-        t0 = time.perf_counter()
         x, stats = robust_padded_solve_batched(
             q, seeds, m_max=cls.m_max, method=self.method, sketch=sketch,
             max_iters=self.max_iters, rho=self.rho, tol=self.tol,
             max_retries=self.max_retries, fallback=self.fallback,
             compute_dtype=cd, grams=grams, gram_full=gfull, mesh=self.mesh,
             device=self.device, **seg)
-        self._finish_chunk(t0, len(reqs))
+        self._finish_chunk(len(reqs))
         self.stats["segments"] += stats["segments"]
         self.stats["resumed_chunks"] += int(stats["resumed"])
+        self.stats["trips_run"] += stats["trips_run"]
+        self.stats["trips_needed"] += stats["trips"]
         out = {}
-        for i, r in enumerate(reqs):
-            di = r.A.shape[1]
-            self.stats["retries"] += int(stats["retries"][i])
-            self.stats["fallbacks"] += int(stats["fell_back"][i])
-            if int(stats["status"][i]) == int(SolveStatus.DEADLINE_EXCEEDED):
-                self.stats["deadline_exceeded"] += 1
-            out[r.req_id] = RidgeSolution(
-                req_id=r.req_id, x=x[i, :di],
-                delta_tilde=float(stats["dtilde"][i]),
-                m_final=int(stats["m_final"][i]),
-                iters=int(stats["iters"][i]),
-                doublings=int(stats["doublings"][i]),
-                shape_class=cls, batch_index=i, sketch=sketch, compute_dtype=cd,
-                status=status_name(stats["status"][i]),
-                converged=bool(stats["converged"][i]),
-                stalled=bool(stats["stalled"][i]),
-                retries=int(stats["retries"][i]),
-                fell_back=bool(stats["fell_back"][i]),
-                cache_hit=skipped)
+        with trace.span("service.answers"):
+            for i, r in enumerate(reqs):
+                di = r.A.shape[1]
+                self.stats["retries"] += int(stats["retries"][i])
+                self.stats["fallbacks"] += int(stats["fell_back"][i])
+                if int(stats["status"][i]) == int(SolveStatus.DEADLINE_EXCEEDED):
+                    self.stats["deadline_exceeded"] += 1
+                out[r.req_id] = RidgeSolution(
+                    req_id=r.req_id, x=x[i, :di],
+                    delta_tilde=float(stats["dtilde"][i]),
+                    m_final=int(stats["m_final"][i]),
+                    iters=int(stats["iters"][i]),
+                    doublings=int(stats["doublings"][i]),
+                    shape_class=cls, batch_index=i, sketch=sketch, compute_dtype=cd,
+                    status=status_name(stats["status"][i]),
+                    converged=bool(stats["converged"][i]),
+                    stalled=bool(stats["stalled"][i]),
+                    retries=int(stats["retries"][i]),
+                    fell_back=bool(stats["fell_back"][i]),
+                    cache_hit=skipped)
         return out
 
     def solve_one(self, A, y, nu, lam_diag=None) -> RidgeSolution:
